@@ -1,0 +1,61 @@
+"""State carried across from the JAX package: packed histories and
+ladder resume snapshots.
+
+The JAX package's ``wgl.pack`` tables and its engines' resume snapshots
+are plain numpy arrays (plus the JAX step function).  These converters
+turn them into the port's forms so that a run can continue in the port
+from where a JAX run stood.  They take numpy only and import nothing of
+the JAX package: the JAX step is mapped to the port's step by the
+function's name, which is the same in both packages' ``models/tensor``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from jepsen_tpu_torch.models import tensor as tmodels
+
+#: The JAX package's TensorModel step-function names -> model names.
+_STEP_MODELS = {
+    tm.step.__name__: name for name, tm in tmodels.REGISTRY.items()
+}
+
+
+def port_step(step):
+    """The port's torch step for a JAX package step function, by the
+    step function's name."""
+    name = _STEP_MODELS.get(getattr(step, "__name__", None))
+    if name is None:
+        raise ValueError(f"no port step for {step!r}")
+    return tmodels.REGISTRY[name].step
+
+
+def _i32_bits(a) -> np.ndarray:
+    """A uint32 bitset array as the port's int32 bit patterns."""
+    return np.ascontiguousarray(np.asarray(a).astype(np.uint32).view(np.int32))
+
+
+def from_jax_packed(packed: dict) -> dict:
+    """A JAX ``wgl.pack`` (or ``pad_packed``) dict as the port's packed
+    dict: the same tables, ``step`` mapped to the port's torch step, and
+    ``slot_onehot`` as int32 bit patterns."""
+    out = dict(packed)
+    out["step"] = port_step(packed["step"])
+    out["slot_onehot"] = _i32_bits(packed["slot_onehot"])
+    out["slot_lane"] = np.asarray(packed["slot_lane"], np.int32)
+    return out
+
+
+def from_jax_resume(snap):
+    """A JAX ladder resume snapshot ``(bsnap, state, fok, fcr, alive)``
+    (one lane, or lane-batched with a leading axis) as the port's:
+    int32 state, fok as int32 bit patterns, int16 counts, bool alive."""
+    bsnap, state, fok, fcr, alive = snap
+    bs = np.asarray(bsnap)
+    return (
+        int(bs) if bs.ndim == 0 else bs.astype(np.int32),
+        np.asarray(state, np.int32),
+        _i32_bits(fok),
+        np.asarray(fcr, np.int16),
+        np.asarray(alive, bool),
+    )

@@ -1,0 +1,139 @@
+"""Import hygiene and entry-point contracts of the PyTorch port.
+
+The port imports torch, never jax, and nothing of the JAX package; its
+confirmation workers import no torch either.  Entry points run on the
+card unless the caller asks for the CPU, and a kernel wrapper given a
+tensor that is not on the CPU never falls back to its plain version.
+"""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from jepsen_tpu_torch import _platform
+from jepsen_tpu_torch import models as tm
+from jepsen_tpu_torch.ops import wide_kernel as twk
+from jepsen_tpu_torch.parallel import batch as tbatch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "jepsen_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name.startswith("jaxlib")
+            or name == "jepsen_tpu" or name.startswith("jepsen_tpu."))
+
+
+def test_importing_every_port_module_loads_no_jax():
+    """In a fresh interpreter, import the package and each of its
+    modules: no jax* and no jepsen_tpu / jepsen_tpu.* entry may appear in
+    sys.modules."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {json.dumps(_port_modules())}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "jepsen_tpu_torch.parallel.batch" in loaded
+    bad = [k for k in loaded if _forbidden(k)]
+    assert bad == []
+
+
+def test_confirm_worker_import_chain_is_torch_free():
+    """The modules a spawned confirmation worker imports load neither
+    torch nor jax (a worker must never initialise CUDA)."""
+    code = (
+        "import json, sys\n"
+        "import jepsen_tpu_torch, jepsen_tpu_torch._confirm_worker\n"
+        "import jepsen_tpu_torch.checker.wgl_cpu, jepsen_tpu_torch.models\n"
+        "import jepsen_tpu_torch.history\n"
+        "print(json.dumps([k for k in sys.modules if k.split('.')[0] in "
+        "('torch', 'jax', 'jepsen_tpu')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
+def test_static_scan_no_jax_imports(path):
+    """No file of the package, nor chip_smoke.py, imports jax or the JAX
+    package (checked on the syntax tree, so lazy imports count too)."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert [n for n in names if _forbidden(n)] == []
+
+
+def test_resolve_device(monkeypatch):
+    assert _platform.resolve_device("cpu").type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _platform.resolve_device()
+    with pytest.raises(RuntimeError):
+        _platform.resolve_device("cuda")
+
+
+def test_wrappers_never_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel path, which
+    refuses what it cannot launch: the plain version is never taken."""
+    n = 512
+    st = torch.zeros(1, n, dtype=torch.int32, device="meta")
+    fo = torch.zeros(1, n, 1, dtype=torch.int32, device="meta")
+    fc = torch.zeros(1, n, 2, dtype=torch.int16, device="meta")
+    al = torch.ones(1, n, dtype=torch.bool, device="meta")
+    before = (twk.KEEP_LAUNCHES, twk.FUSED_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        twk.keep_mask(st, fo, fc, al)
+    with pytest.raises(ValueError, match="CUDA"):
+        twk.fused_frontier_update(st, fo, fc, al, None, 64, max_count=4)
+    assert (twk.KEEP_LAUNCHES, twk.FUSED_LAUNCHES) == before
+
+
+def test_batch_analysis_refuses_unported_options():
+    model = tm.CASRegister(None)
+    for kw in (dict(engine="sync"), dict(exact_escalation=(64,)),
+               dict(mesh=object()), dict(checkpoint_dir="x"),
+               dict(deadline=5.0), dict(admission=object()),
+               dict(confirm_refutations="device")):
+        with pytest.raises(NotImplementedError):
+            tbatch.batch_analysis(model, [], device="cpu", **kw)
+
+
+def test_spawned_confirm_worker_stays_off_torch():
+    """A spawned confirmation worker, after a confirmation task, has
+    imported neither torch nor jax."""
+    from jepsen_tpu_torch.testing.genhist import valid_register_history
+
+    pool = tbatch.confirm_pool(2)
+    hist = valid_register_history(12, 2, seed=1)
+    fut = pool.submit(tbatch._confirm_worker.confirm_refutation,
+                      tm.CASRegister(None), hist, 10_000, None)
+    assert fut.result(timeout=120)["valid?"] is True
+    probe = pool.submit(tbatch._confirm_worker.probe).result(timeout=120)
+    assert not probe["torch_loaded"] and not probe["jax_loaded"]
+    assert "jepsen_tpu_torch.checker.wgl_cpu" in probe["modules"]
