@@ -5,23 +5,49 @@
 
 Run from the root of the repository.  It imports only the port (never
 jax or the JAX package), builds the CUDA kernels from the sources in the
-checkout, and then:
+checkout (one nvcc per source, all started together), and then:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. holds each kernel against its plain PyTorch version on the card, at
      the bench wide-rung shapes (capacity 2048, P = 8, G = 16 and 32, 8
      lanes) and one small shape: the results must be identical (integer
      and bit outputs, tolerance 0); times both with CUDA events;
-  3. runs the bench ladder: 128 CAS-register histories of 100 ops, 8
+  3. the exchange kernel against its plain version at the bench mesh
+     rescue shapes (4 shards, rcap 19,200 / 31,488 rows of 20 / 36
+     int32 columns) and a small one (tolerance 0), timed beside its
+     bound, its plain version and one PyTorch gather of the same
+     permutation; then the fused update with an explicit child column
+     against its plain version on the received-table shape (4 lanes of
+     125,952 rows, capacity 2048, G = 32);
+  4. the cross-path contract: ``mesh_update`` on 4 shards at the bench
+     rescue shape (global capacity 8192, P = 8, G = 32) and the
+     single-shard fused update at capacity 8192 on the same table give
+     the same alive content with child bits, overflow flag and
+     fingerprint;
+  5. runs the bench ladder: 128 CAS-register histories of 100 ops, 8
      processes, 30 % :info, 8 values, every 4th corrupted (seeds
      0-127), capacity ladder (128, 512, 2048), no exact stages, no CPU
      fallback, the fused backend, on the card; every kernel's launch
      count must be > 0 in that run;
-  4. checks the verdicts of the first 48 histories against the exact CPU
+  6. checks the verdicts of the first 48 histories against the exact CPU
      sweep (100,000-configuration budget): no disagreement among
-     verdicts that are not "unknown".
+     verdicts that are not "unknown";
+  7. runs the same ladder with ``mesh=make_mesh(4)``: the lanes it
+     leaves undecided get the mesh rescue at 4 x 2048 rows on 4 logical
+     shards of the card.  Every kernel, the exchange included, must
+     launch in that run; the lanes the rescue took must be those the
+     ladder of phase 5 left unknown, the others' verdicts unchanged,
+     and the rescued verdicts must agree with the exact sweep
+     (2,000,000-configuration budget).  For comparison it runs those
+     lanes on a single-shard rung at the rescue's total capacity and at
+     twice it (one card gives the mesh no capacity a single shard
+     lacks).  Then the mesh engine alone at the rescue capacity on the
+     first 8 histories the greedy walk left to the frontier rungs: at
+     least one verdict decided, and no disagreement with the exact
+     sweep (100,000-configuration budget).
 
-It prints a ``{"kernels": [...]}`` JSON line and the card line, and as
+It prints a ``{"kernels": [...]}`` JSON line (launches from the mesh
+ladder of phase 7, times at the G = 32 shapes) and the card line, and as
 its last line ``{"ok": true, "device": {...}}``.  It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
 """
@@ -42,6 +68,9 @@ CORRUPT_EVERY = 4
 CAPS = (128, 512, 2048)
 CPU_MAX_CONFIGS = 100_000
 CPU_SAMPLE = 48
+MESH_SHARDS = 4
+RESCUE_MAX_CONFIGS = 2_000_000
+MESH_ENGINE_LANES = 8
 
 #: H100 SXM published peaks (dense): HBM bytes/s, and the 32-bit
 #: non-tensor rate used for the kernels' integer compare/hash work.
@@ -198,6 +227,213 @@ def check_kernels(dev, wk) -> dict:
     return out
 
 
+def check_exchange(dev, wk, mesh_mod) -> dict:
+    """Phase 3a: the exchange kernel against its plain version; returns
+    the G = 32 rescue-shape measurements."""
+    import torch
+
+    shapes = [("small", 3, 7, 5), ("rescue-G16", MESH_SHARDS, 19200, 20),
+              ("rescue-G32", MESH_SHARDS, 31488, 36)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for tag, D, rcap, nc in shapes:
+        mesh = mesh_mod.make_mesh(D)
+        send = torch.randint(-2**31, 2**31 - 1, (D, D, rcap, nc),
+                             dtype=torch.int32, device=dev, generator=gen)
+        got = wk.mesh_exchange(mesh, send)
+        ref = wk.mesh_exchange_ref(send)
+        # the library yardstick: one advanced-index gather by (source, slot)
+        slot = torch.arange(D, device=dev)
+        src = (slot[:, None] - slot[None, :]) % D
+        lib = send[src, slot[None, :]]
+        torch.cuda.synchronize()
+        err = _max_abs_err((got,), (ref,))
+        print(f"exchange[{tag}]: D={D} rcap={rcap} NC={nc} max_abs_err={err} "
+              f"(tolerance 0; library gather max_abs_err "
+              f"{_max_abs_err((lib,), (ref,))})", flush=True)
+        if err != 0 or not torch.equal(lib, ref):
+            raise AssertionError(f"{tag}: exchange disagrees with its plain version")
+        if tag == "small":
+            continue
+        ms = _time_ms(lambda: wk.mesh_exchange(mesh, send), 50)
+        plain = _time_ms(lambda: wk.mesh_exchange_ref(send), 20)
+        lib_ms = _time_ms(lambda: send[src, slot[None, :]], 50)
+        bound, by = _bound_ms(2 * send.numel() * 4, 0)
+        print(f"timing[{tag}]: mesh_exchange {ms:.4f} ms (plain {plain:.4f} "
+              f"ms, library gather {lib_ms:.4f} ms, bound {bound:.4f} ms by "
+              f"{by}: {2 * send.numel() * 4} bytes)", flush=True)
+        out[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                        library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    return out["rescue-G32"]
+
+
+def check_fused_child(dev, wk) -> None:
+    """Phase 3b: the fused update with an explicit child column against
+    its plain version on the received-table shape of the G = 32 rescue
+    (4 lanes of 125,952 rows, capacity 2048)."""
+    import torch
+
+    C, P, G = 2048, 8, 32
+    st, fo, fc, al = _tables(3072, P, G, MESH_SHARDS, dev)  # 3072*41 rows
+    gen = torch.Generator(device=dev).manual_seed(1)
+    child = torch.rand(st.shape, device=dev, generator=gen) < 0.5
+    got = wk.fused_frontier_update(st, fo, fc, al, None, C, max_count=P + 1,
+                                   child=child)
+    ref = wk.fused_frontier_update_ref(st, fo, fc, al, C, 4, None, P + 1,
+                                       child=child)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, ref)
+    ms = _time_ms(lambda: wk.fused_frontier_update(
+        st, fo, fc, al, None, C, max_count=P + 1, child=child), 10)
+    print(f"fused_child[received-G32]: lanes={st.shape[0]} n={st.shape[1]} "
+          f"C={C} max_abs_err={err} (tolerance 0; alive out rows "
+          f"{int(ref[3].sum())}, child out rows {int(ref[6].sum())}); "
+          f"{ms:.4f} ms", flush=True)
+    if err != 0:
+        raise AssertionError("fused update with child= disagrees with its "
+                             "plain version")
+
+
+def _pool_table(n: int, P: int, G: int, pool: int, seed: int, dev):
+    """An [n]-row candidate table drawn from ``pool`` distinct rows (80 %
+    alive): few enough contents that neither path overflows, so the
+    cross-path contract compares survivors, not just flags."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    st = rng.integers(0, 64, pool).astype(np.int32)
+    fo = rng.integers(0, 1 << 16, (pool, (P + 31) // 32)).astype(np.int32)
+    fc = rng.integers(0, 4, (pool, G)).astype(np.int16)
+    pick = rng.integers(0, pool, n)
+    alive = rng.random(n) < 0.8
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (st[pick], fo[pick], fc[pick], alive))
+
+
+def check_cross_path(dev, wk, mesh_mod, sharded) -> float:
+    """Phase 4: ``mesh_update`` on 4 shards against the single-shard
+    fused update at the same global capacity on the same table; returns
+    the mesh stage's ms per call."""
+    import torch
+
+    C, P, G = 8192, 8, 32
+    n = C * (1 + P + G)
+    st, fo, fc, al = _pool_table(n, P, G, 1500, 7, dev)
+    mesh = mesh_mod.make_mesh(MESH_SHARDS)
+    got = sharded.mesh_update(mesh, st, fo, fc, al, None, C, n_parents=C,
+                              max_count=P + 1)
+    one = wk.fused_frontier_update(st, fo, fc, al, None, C, n_parents=C,
+                                   max_count=P + 1)
+    torch.cuda.synchronize()
+
+    def content(state, fok, fcr, alive, child):
+        keys = torch.cat([state.reshape(-1, 1), fok.reshape(state.numel(), -1),
+                          fcr.reshape(state.numel(), -1).to(torch.int32),
+                          child.reshape(-1, 1).to(torch.int32)], 1)
+        return torch.unique(keys[alive.reshape(-1)], dim=0)
+
+    a = content(*got[:4], got[6])
+    b = content(*one[:4], one[6])
+    same = a.shape == b.shape and torch.equal(a, b)
+    fp_same = torch.equal(got[5], one[5])
+    ms = _time_ms(lambda: sharded.mesh_update(
+        mesh, st, fo, fc, al, None, C, n_parents=C, max_count=P + 1), 5)
+    print(f"cross_path[rescue-G32]: n={n} C={C} shards={MESH_SHARDS}: "
+          f"alive rows {a.shape[0]} vs {b.shape[0]}, content with child "
+          f"bits equal {same}, overflow {bool(got[4])} vs {bool(one[4])}, "
+          f"fp {got[5].tolist()} vs {one[5].tolist()}; mesh_update "
+          f"{ms:.4f} ms", flush=True)
+    if not same or not fp_same or bool(got[4]) != bool(one[4]) or bool(got[4]):
+        raise AssertionError("mesh and single-shard paths disagree")
+    return ms
+
+
+def run_mesh_ladder(batch, wk, mesh_mod, model, hists, plain_results):
+    """Phase 7: the bench ladder with the mesh rescue on 4 logical
+    shards; returns the launch counts of that run."""
+    stats: dict = {}
+    wk.reset_counts()
+    t0 = time.perf_counter()
+    results = batch.batch_analysis(
+        model, hists, capacity=CAPS, exact_escalation=(), cpu_fallback=False,
+        dedup_backend="fused", device="cuda", stats=stats,
+        mesh=mesh_mod.make_mesh(MESH_SHARDS),
+    )
+    seconds = time.perf_counter() - t0
+    counts = {"keep_mask": wk.KEEP_LAUNCHES,
+              "fused_frontier_update": wk.FUSED_LAUNCHES,
+              "mesh_exchange": wk.EXCHANGE_LAUNCHES}
+    rescue = stats.get("mesh_rescue")
+    print(f"mesh_ladder: {seconds:.3f} s, launches {counts}", flush=True)
+    print("mesh_rescue: " + json.dumps(
+        {**(rescue or {}), "exchange_launches": counts["mesh_exchange"]}),
+        flush=True)
+    for name, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"{name} was not launched on the mesh path")
+    took = [i for i, r in enumerate(plain_results) if r["valid?"] == "unknown"]
+    if rescue is None or rescue["lanes"] != len(took):
+        raise AssertionError(f"the rescue took {rescue} lanes; the ladder "
+                             f"left {len(took)} unknown")
+    moved = [i for i, (a, b) in enumerate(zip(plain_results, results))
+             if i not in took and a["valid?"] != b["valid?"]]
+    if moved:
+        raise AssertionError(f"verdicts off the rescue changed: {moved}")
+    pool = batch.confirm_pool()
+    futs = [pool.submit(batch._confirm_worker.sweep, model, hists[i],
+                        RESCUE_MAX_CONFIGS) for i in took]
+    cpu = [f.result() for f in futs]
+    verdicts = [(i, results[i]["valid?"], c["valid?"]) for i, c in zip(took, cpu)]
+    disagree = sum(1 for _i, d, c in verdicts
+                   if "unknown" not in (d, c) and d != c)
+    print(f"mesh_verdicts: rescued lanes [history, mesh ladder, exact sweep] "
+          f"{json.dumps(verdicts)}: {disagree} disagreements", flush=True)
+    if disagree:
+        raise AssertionError(f"{disagree} rescued verdict disagreements")
+    # What one card can show: the same lanes on a single-shard rung at
+    # the rescue's total capacity and at twice it, from barrier 0.
+    for cap in (CAPS[-1] * MESH_SHARDS, 2 * CAPS[-1] * MESH_SHARDS):
+        t0 = time.perf_counter()
+        single = batch.batch_analysis(
+            model, [hists[i] for i in took], capacity=(cap,),
+            greedy_first=False, carry_frontier=False, cpu_fallback=False,
+            confirm_refutations=False, dedup_backend="fused", device="cuda")
+        print(f"single_shard[{cap}]: rescued lanes {took} -> "
+              f"{json.dumps([r['valid?'] for r in single])} in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return counts
+
+
+def check_mesh_engine(batch, sharded, mesh_mod, model, hists, plain_results):
+    """Phase 7b: the mesh engine alone at the rescue capacity on the
+    first histories the greedy walk left to the frontier rungs, against
+    the exact sweep; at least one verdict must be decided, so that the
+    check holds decided mesh verdicts to the sweep."""
+    hard = [i for i, r in enumerate(plain_results)
+            if (r.get("kernel") or {}).get("capacity", 0) >= CAPS[0]][:MESH_ENGINE_LANES]
+    mesh = mesh_mod.make_mesh(MESH_SHARDS)
+    pool = batch.confirm_pool()
+    futs = [pool.submit(batch._confirm_worker.sweep, model, hists[i],
+                        CPU_MAX_CONFIGS) for i in hard]
+    t0 = time.perf_counter()
+    got = [sharded.mesh_kernel_analysis(model, hists[i], mesh,
+                                        capacity=(CAPS[-1] * MESH_SHARDS,))
+           for i in hard]
+    seconds = time.perf_counter() - t0
+    cpu = [f.result() for f in futs]
+    rows = [(i, g["valid?"], c["valid?"]) for i, g, c in zip(hard, got, cpu)]
+    decided = sum(1 for _i, g, c in rows if "unknown" not in (g, c))
+    disagree = sum(1 for _i, g, c in rows if "unknown" not in (g, c) and g != c)
+    print(f"mesh_engine: {len(hard)} lanes at {CAPS[-1] * MESH_SHARDS} rows "
+          f"on {MESH_SHARDS} shards in {seconds:.3f} s, [history, mesh, exact "
+          f"sweep] {json.dumps(rows)}: {decided} decided by both, "
+          f"{disagree} disagreements", flush=True)
+    if disagree or not decided:
+        raise AssertionError(f"mesh engine: {disagree} disagreements, "
+                             f"{decided} decided")
+
+
 def run_ladder(batch, wk, m, genhist):
     """Phase 3: the bench ladder on the card; returns (results,
     histories, stats, seconds, launch counts)."""
@@ -285,7 +521,8 @@ def main(argv=None) -> int:
         from jepsen_tpu_torch import models as m
         from jepsen_tpu_torch.ops import _build
         from jepsen_tpu_torch.ops import wide_kernel as wk
-        from jepsen_tpu_torch.parallel import batch
+        from jepsen_tpu_torch.parallel import batch, sharded
+        from jepsen_tpu_torch.parallel import mesh as mesh_mod
         from jepsen_tpu_torch.testing import genhist
     except ImportError as e:
         print(f"chip_smoke: run from the root of the repository ({e})",
@@ -297,16 +534,22 @@ def main(argv=None) -> int:
     print(f"device: {kind} ({torch.cuda.device_count()} visible); "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
+    sources = ["wide_kernel", "mesh_exchange"]
     t0 = time.perf_counter()
-    _build.build(["wide_kernel"])
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)", flush=True)
-    log = _build.BUILD_DIR / "wide_kernel.log"
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print("ptxas: " + line.strip(), flush=True)
+    _build.build(sources)
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
+          f"{len(sources)} sources in parallel)", flush=True)
+    for name in sources:
+        log = _build.BUILD_DIR / f"{name}.log"
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"ptxas[{name}]: " + line.strip(), flush=True)
 
     measured = check_kernels(dev, wk)
+    exchange = check_exchange(dev, wk, mesh_mod)
+    check_fused_child(dev, wk)
+    check_cross_path(dev, wk, mesh_mod, sharded)
 
     model, results, hists, stats, seconds, counts = run_ladder(
         batch, wk, m, genhist)
@@ -339,22 +582,29 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
     if disagree:
         raise AssertionError(f"{disagree} verdict disagreements")
+
+    mesh_counts = run_mesh_ladder(batch, wk, mesh_mod, model, hists, results)
+    check_mesh_engine(batch, sharded, mesh_mod, model, hists, results)
     if args.profile:
         profile_ladder(batch, model, hists)
     batch.shutdown_confirm_pool()
 
-    bench = measured["bench-G32"]
-    source = "jepsen_tpu_torch/ops/csrc/wide_kernel.cu"
+    bench = {**measured["bench-G32"], "mesh_exchange": exchange}
+    sources = {"keep_mask": "jepsen_tpu_torch/ops/csrc/wide_kernel.cu",
+               "fused_frontier_update": "jepsen_tpu_torch/ops/csrc/wide_kernel.cu",
+               "mesh_exchange": "jepsen_tpu_torch/ops/csrc/mesh_exchange.cu"}
     replaces = {"keep_mask": "jepsen_tpu/ops/wide_kernel.py:421",
-                "fused_frontier_update": "jepsen_tpu/ops/wide_kernel.py:442"}
+                "fused_frontier_update": "jepsen_tpu/ops/wide_kernel.py:442",
+                "mesh_exchange": "jepsen_tpu/ops/wide_kernel.py:873"}
     kernels = [
-        {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces[name], "launches": counts[name],
+        {"name": name, "route": "cuda", "source": sources[name],
+         "replaces": replaces[name], "launches": mesh_counts[name],
          "max_abs_err": bench[name]["max_abs_err"], "ms": bench[name]["ms"],
          "plain_ms": bench[name]["plain_ms"],
          "bound_ms": bench[name]["bound_ms"],
-         "bound_by": bench[name]["bound_by"], "library_ms": None}
-        for name in ("keep_mask", "fused_frontier_update")
+         "bound_by": bench[name]["bound_by"],
+         "library_ms": bench[name].get("library_ms")}
+        for name in ("keep_mask", "fused_frontier_update", "mesh_exchange")
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,5 @@
-"""State carried across from the JAX package: packed histories and
-ladder resume snapshots.
+"""State carried across from the JAX package: packed histories, ladder
+resume snapshots and mesh-update outputs.
 
 The JAX package's ``wgl.pack`` tables and its engines' resume snapshots
 are plain numpy arrays (plus the JAX step function).  These converters
@@ -44,6 +44,30 @@ def from_jax_packed(packed: dict) -> dict:
     out["slot_onehot"] = _i32_bits(packed["slot_onehot"])
     out["slot_lane"] = np.asarray(packed["slot_lane"], np.int32)
     return out
+
+
+def from_jax_mesh(out, devices: int):
+    """A JAX ``mesh_update`` result (the shards' outputs concatenated
+    ``[D*Fl]``, overflow and fingerprint replicated) in the port's
+    layout: state, fok (int32 bit patterns), fcr (int16), alive and child
+    as ``[D, Fl]`` shard tables, overflow as a bool, the fingerprint as
+    ``[3]`` int64."""
+    state, fok, fcr, alive, ovf, fp, child = (np.asarray(a) for a in out)
+    D = int(devices)
+
+    def shards(a):
+        return a.reshape(D, a.shape[0] // D, *a.shape[1:])
+
+    fp = fp.astype(np.int64).reshape(-1, 3)
+    return (
+        shards(state.astype(np.int32)),
+        shards(_i32_bits(fok)),
+        shards(fcr.astype(np.int16)),
+        shards(alive.astype(bool)),
+        bool(ovf.ravel()[0]),
+        fp[0],
+        shards(child.astype(bool)),
+    )
 
 
 def from_jax_resume(snap):

@@ -38,7 +38,8 @@
 //   Fused tail:
 //   6. k_exclusive_scan over the per-block kept counts: block offsets.
 //   7. k_compact1: stable block scan (warp shuffles) of the keep mask;
-//      survivors go to the 2C buffer in candidate order.
+//      survivors go to the 2C buffer in candidate order, with their
+//      child bit (an explicit column on the mesh path, else positional).
 //   8. k_prune: one thread per buffer row j tests every alive row i:
 //      same (state, fok) class, fcr_i <= min(fcr_j, m-1) on every group
 //      (the saturating one-hot contract of exact_prune_mxu, as integer
@@ -267,10 +268,14 @@ __global__ void k_kill(int n, int S, int sb_shift, int window,
 // to capacity with the fingerprint
 // ---------------------------------------------------------------------------
 
+// A survivor's child bit: the explicit child column when given (the mesh
+// path, whose routing scrambled candidate order), else positional (rows
+// at or past n_parents are expansions; none when n_parents < 0).
 __global__ void k_compact1(int n, int Cb, int W, int G, int n_parents,
                            const int32_t* __restrict__ state,
                            const uint32_t* __restrict__ fok,
                            const int16_t* __restrict__ fcr,
+                           const uint8_t* __restrict__ child,
                            const uint8_t* __restrict__ keep,
                            const int32_t* __restrict__ chunk_off,
                            int32_t* __restrict__ bst,
@@ -289,7 +294,9 @@ __global__ void k_compact1(int n, int Cb, int W, int G, int n_parents,
     bst[o] = state[r];
     for (int w = 0; w < W; ++w) bfo[o * W + w] = fok[r * W + w];
     for (int g = 0; g < G; ++g) bfc[o * G + g] = fcr[r * G + g];
-    bch[o] = static_cast<uint8_t>(n_parents >= 0 && i >= n_parents);
+    bch[o] = (child != nullptr)
+                 ? static_cast<uint8_t>(child[r] != 0)
+                 : static_cast<uint8_t>(n_parents >= 0 && i >= n_parents);
   }
 }
 
@@ -459,17 +466,23 @@ int wk_keep_mask(int L, int n, int W, int G, int window, int sbits,
 
 // The fused tail after wk_keep_mask (with chunk_cnt): compaction into
 // the Cb = 2C buffer, the domination prune, compaction to C rows and the
-// fingerprint.  Scratch: chunk_off [L*nchunks], nk0 [L], bst [L*Cb],
-// bfo [L*Cb*W], bfc [L*Cb*G], bch, dead [L*Cb].  Outputs: kst [L*C],
-// kfo [L*C*W], kfc [L*C*G], alv, chd [L*C], flags [L*2] (overflowed,
-// survivor count), fp [L*3].
+// fingerprint.  child [L*n] (0/1) is the explicit child column, or null
+// for the positional one from n_parents (-1: no children); the two
+// exclude each other.  Scratch: chunk_off [L*nchunks], nk0 [L], bst
+// [L*Cb], bfo [L*Cb*W], bfc [L*Cb*G], bch, dead [L*Cb].  Outputs: kst
+// [L*C], kfo [L*C*W], kfc [L*C*G], alv, chd [L*C], flags [L*2]
+// (overflowed, survivor count), fp [L*3].
 int wk_fused_tail(int L, int n, int C, int W, int G, int m, int n_parents,
                   const void* state, const void* fok, const void* fcr,
+                  const void* child,
                   const void* keep, const void* chunk_cnt, void* chunk_off,
                   void* nk0, void* bst, void* bfo, void* bfc, void* bch,
                   void* dead, void* kst, void* kfo, void* kfc, void* alv,
                   void* chd, void* flags, void* fp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (child != nullptr && n_parents >= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int Cb = 2 * C;
   const int nchunks = static_cast<int>(blocks_for(n, kChunkRows));
   k_exclusive_scan<<<L, kScanThreads, 0, s>>>(
@@ -479,7 +492,7 @@ int wk_fused_tail(int L, int n, int C, int W, int G, int m, int n_parents,
   k_compact1<<<chunks, kChunkRows, 0, s>>>(
       n, Cb, W, G, n_parents, static_cast<const int32_t*>(state),
       static_cast<const uint32_t*>(fok), static_cast<const int16_t*>(fcr),
-      static_cast<const uint8_t*>(keep),
+      static_cast<const uint8_t*>(child), static_cast<const uint8_t*>(keep),
       static_cast<const int32_t*>(chunk_off), static_cast<int32_t*>(bst),
       static_cast<uint32_t*>(bfo), static_cast<int16_t*>(bfc),
       static_cast<uint8_t*>(bch));

@@ -1,7 +1,8 @@
-"""The fused wide-stage frontier update (``dedup_backend="fused"``).
+"""The fused wide-stage frontier update (``dedup_backend="fused"``) and
+the mesh-spanning wide stage.
 
-Wrappers of the two hand-written CUDA kernels in ``csrc/wide_kernel.cu``
-and their plain PyTorch versions:
+Wrappers of the hand-written CUDA kernels in ``csrc/wide_kernel.cu``
+and ``csrc/mesh_exchange.cu`` and their plain PyTorch versions:
 
   * ``keep_mask`` — the dedup stage alone (row hash, bucket prefix rank,
     windowed 64-bit-hash kills): the keep mask in candidate order and
@@ -17,7 +18,17 @@ and their plain PyTorch versions:
     rows are zeros.  Replaces ``_fused_kernel``
     (jepsen_tpu/ops/wide_kernel.py, ``fused_frontier_update``); the
     kernel's source note says what bounds it on Hopper and how it is
-    built.
+    built.  ``child=`` takes an explicit child column in place of the
+    positional ``n_parents``.
+  * ``mesh_exchange`` — the all-to-all of D logical shards' pre-rotated
+    slot matrices.  Replaces ``_exchange_kernel``
+    (jepsen_tpu/ops/wide_kernel.py, ``mesh_exchange``).
+
+``mesh_frontier_update`` is the mesh-spanning stage built on them: the
+JAX package's per-shard body with the shard axis written out (tables
+``[D, n_loc]``, see ``parallel.mesh``): class-hash routing into fixed
+receive slots, the exchange, the parents-first partition, and the fused
+update on each shard's received table.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises — there is no fallback between the
@@ -36,6 +47,7 @@ package.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 
 import torch
@@ -54,6 +66,22 @@ FUSED_MIN_CAPACITY = 1024
 #: for the plain version): a run can show that it went through them.
 KEEP_LAUNCHES = 0
 FUSED_LAUNCHES = 0
+EXCHANGE_LAUNCHES = 0
+
+#: Skew headroom on the per-peer receive slots (the JAX package's
+#: value): each of the D targets gets a fixed slot of
+#: ``ceil(HEADROOM * n_loc / D)`` rows, 128-padded; more rows for one
+#: target is a spill, reported as overflow.
+MESH_RCAP_HEADROOM = 1.5
+
+#: Routing seed of the class-hash owner (the JAX package's value):
+#: rows route by (state, fok), so duplicates and domination pairs meet
+#: on one shard and every kill is decided with all of its rows local.
+MESH_ROUTE_SEED = 0x5EED_0D15
+
+#: The JAX package's row tile: receive slots pad to it, so the received
+#: table has the JAX package's row count and bucket geometry.
+TILE = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,7 +89,11 @@ _SIGNATURES = {
     "wk_chunk_rows": (_I, []),
     "wk_error_string": (ctypes.c_char_p, [_I]),
     "wk_keep_mask": (_I, [_I] * 7 + [_P] * 15),
-    "wk_fused_tail": (_I, [_I] * 7 + [_P] * 20),
+    "wk_fused_tail": (_I, [_I] * 7 + [_P] * 21),
+}
+_EXCHANGE_SIGNATURES = {
+    "wk_error_string": (ctypes.c_char_p, [_I]),
+    "wk_mesh_exchange": (_I, [_I, ctypes.c_int64, _P, _P, _P]),
 }
 
 
@@ -70,10 +102,11 @@ def _lib():
 
 
 def reset_counts() -> None:
-    """Set both launch counts to 0."""
-    global KEEP_LAUNCHES, FUSED_LAUNCHES
+    """Set every launch count to 0."""
+    global KEEP_LAUNCHES, FUSED_LAUNCHES, EXCHANGE_LAUNCHES
     KEEP_LAUNCHES = 0
     FUSED_LAUNCHES = 0
+    EXCHANGE_LAUNCHES = 0
 
 
 def wide_min_capacity() -> int:
@@ -175,15 +208,35 @@ def keep_mask(state, fok, fcr, alive, window: int = 4):
     return (keep[0], ovf[0]) if single else (keep, ovf)
 
 
+def _child_lanes(child, state, n_parents):
+    """The explicit child column as a [L, n] bool table like ``state``
+    (None stays None); it excludes ``n_parents``, as in the JAX
+    package."""
+    if child is None:
+        return None
+    if n_parents is not None:
+        raise ValueError("pass either an explicit child column or "
+                         "positional n_parents, not both")
+    child = child.reshape(state.shape)
+    if child.dtype != torch.bool:
+        child = child != 0
+    return child
+
+
 def fused_frontier_update(
     state, fok, fcr, alive, cost, capacity: int, window: int = 4,
     n_parents: int | None = None, max_count: int | None = None,
+    child=None,
 ):
     """Drop-in fused replacement for ``hashing.frontier_update_fast``:
     same arguments (``cost`` accepted and unused), same returns
-    (state', fok', fcr', alive', overflowed, fp, child).  See the module
-    docstring for the parity contract."""
+    (state', fok', fcr', alive', overflowed, fp, child).  ``child``: an
+    explicit per-row child bit (``[L, n]`` or ``[n]``) for callers whose
+    candidate order no longer encodes provenance (the mesh path); it
+    excludes ``n_parents``.  See the module docstring for the parity
+    contract."""
     (state, fok, fcr, alive), single = hashing._lanes(state, fok, fcr, alive)
+    child = _child_lanes(child, state, n_parents)
     n = state.shape[1]
     if not _geometry_ok(n, capacity, max_count):
         raise ValueError(f"fused update infeasible at n={n}, "
@@ -191,17 +244,22 @@ def fused_frontier_update(
     m = min(int(max_count), hashing.MXU_PRUNE_MAX_COUNT)
     if state.device.type == "cpu":
         out = fused_frontier_update_ref(state, fok, fcr, alive, capacity,
-                                        window, n_parents, max_count)
+                                        window, n_parents, max_count, child)
     else:
         out = _launch_fused(state, fok, fcr, alive, capacity, window,
-                            n_parents, m)
+                            n_parents, m, child)
     return tuple(o[0] for o in out) if single else out
 
 
-def _launch_fused(state, fok, fcr, alive, capacity, window, n_parents, m):
+def _launch_fused(state, fok, fcr, alive, capacity, window, n_parents, m,
+                  child=None):
     global FUSED_LAUNCHES
     keep, _ovf, chunk_cnt = _launch_keep(state, fok, fcr, alive, window, True)
     (L, n), W, G = state.shape, fok.shape[2], fcr.shape[2]
+    if child is not None and (child.device != state.device
+                              or not child.is_contiguous()):
+        raise ValueError("child must be a contiguous table on the same "
+                         "CUDA device as state")
     lib = _lib()
     C = int(capacity)
     Cb = 2 * C
@@ -224,7 +282,9 @@ def _launch_fused(state, fok, fcr, alive, capacity, window, n_parents, m):
     fp = torch.empty(L, 3, **i32)
     rc = lib.wk_fused_tail(
         L, n, C, W, G, int(m), -1 if n_parents is None else int(n_parents),
-        *(t.data_ptr() for t in (state, fok, fcr, keep, chunk_cnt, chunk_off,
+        *(t.data_ptr() for t in (state, fok, fcr)),
+        None if child is None else child.data_ptr(),
+        *(t.data_ptr() for t in (keep, chunk_cnt, chunk_off,
                                  nk0, bst, bfo, bfc, bch, dead, kst, kfo,
                                  kfc, alv, chd, flags, fp)),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -303,13 +363,15 @@ def prune_ref(bst, bfo, bfc, m: int):
 
 def fused_frontier_update_ref(state, fok, fcr, alive, capacity: int,
                               window: int = 4, n_parents: int | None = None,
-                              max_count: int | None = None):
+                              max_count: int | None = None, child=None):
     """Plain version of ``fused_frontier_update`` over [L, n] tables:
     the keep mask of ``keep_mask_ref``; the first 2C survivors in
     candidate order form the buffer (more is a spill); ``prune_ref``;
     the first C buffer survivors are the output (more is an overflow),
-    dead rows zero; the fingerprint sums two row hashes of the alive
-    output rows and counts them, mod 2^32."""
+    dead rows zero; an output row's child bit is its source row's
+    ``child`` entry, else ``index >= n_parents``; the fingerprint sums
+    two row hashes of the alive output rows and counts them, mod 2^32."""
+    child = _child_lanes(child, state, n_parents)
     L, n = state.shape
     W, G = fok.shape[2], fcr.shape[2]
     dev = state.device
@@ -333,7 +395,9 @@ def fused_frontier_update_ref(state, fok, fcr, alive, capacity: int,
         kfo[l, :k] = bfo[out]
         kfc[l, :k] = bfc[out]
         alv[l, :k] = True
-        if n_parents is not None:
+        if child is not None:
+            chd[l, :k] = child[l, sel[out]]
+        elif n_parents is not None:
             chd[l, :k] = sel[out] >= n_parents
         overflowed[l] = rows.numel() > 2 * C or surv.numel() > C
     cols = hashing.row_columns(kst, kfo, kfc)
@@ -344,3 +408,203 @@ def fused_frontier_update_ref(state, fok, fcr, alive, capacity: int,
         am.sum(-1),
     ], -1)
     return kst, kfo, kfc, alv, overflowed, fp, chd
+
+
+# ---------------------------------------------------------------------------
+# Mesh-spanning wide stage: class-hash routed shards and the exchange
+# ---------------------------------------------------------------------------
+
+
+def _pad_rows(n: int) -> int:
+    return ((n + TILE - 1) // TILE) * TILE
+
+
+def exchange_cols(w: int, g: int) -> int:
+    """int32 columns per exchanged row:
+    [ state | fok lanes | fcr groups | alive | child ]."""
+    return 1 + w + g + 2
+
+
+def mesh_rcap(n_loc: int, devices: int) -> int:
+    """Fixed per-target receive-slot rows for a shard of ``n_loc``
+    candidate rows on ``devices`` shards: ``ceil(HEADROOM * n_loc / D)``
+    padded to TILE rows (the JAX package's arithmetic, float and all)."""
+    per = int(math.ceil(MESH_RCAP_HEADROOM * n_loc / devices))
+    return _pad_rows(max(per, 1))
+
+
+def mesh_feasible(n: int, capacity: int, max_count, devices: int) -> bool:
+    """Whether the mesh-spanning stage runs at GLOBAL shape ``n``
+    candidate rows / ``capacity`` output rows on ``devices`` shards: the
+    JAX package's ``mesh_feasible`` without its two VMEM terms.  At
+    least two shards, both totals split evenly, and each shard's slice
+    (the received ``D * rcap`` rows against ``capacity / D``) passes the
+    fused update's gate with the JAX package's 64-row granule.  The
+    routing floor (``wide_min_capacity``) applies per shard, as in the
+    JAX package."""
+    if devices < 2 or capacity % devices or n % devices:
+        return False
+    cap_d = capacity // devices
+    rcap = mesh_rcap(n // devices, devices)
+    return (cap_d % (TILE // 2) == 0
+            and fused_feasible(devices * rcap, cap_d, max_count))
+
+
+def mesh_occupancy(capacity: int, P: int, G: int, W: int | None = None,
+                   max_count: int | None = None, devices: int = 2) -> dict:
+    """Per-shard geometry of one mesh-spanning stage at a rung's GLOBAL
+    shape, and the bytes one exchange moves (every send slot read once,
+    every receive slot written once).  Pure arithmetic."""
+    W = (P + 31) // 32 if W is None else W
+    D = int(devices)
+    n = int(capacity) * (1 + P + G)
+    rcap = mesh_rcap(n // D, D)
+    return {
+        "devices": D,
+        "per_device_capacity": int(capacity) // D,
+        "candidates": n,
+        "rcap": rcap,
+        "recv_rows": D * rcap,
+        "exchange_bytes": 2 * D * D * rcap * exchange_cols(W, G) * 4,
+        "feasible": mesh_feasible(n, int(capacity), max_count, D),
+    }
+
+
+def mesh_exchange(mesh, send):
+    """Exchange the shards' pre-rotated slot matrices.  ``send`` is
+    ``[D, D, rcap, NC]`` int32: shard ``me``'s slot ``s`` is its bucket
+    for shard ``(me + s) % D``.  Returns ``recv`` of the same shape:
+    shard ``r``'s slot ``s`` holds the rows source ``(r - s) % D`` sent.
+    CPU tensors run ``mesh_exchange_ref``; CUDA tensors launch the
+    kernel or raise."""
+    D = mesh.size
+    if send.dim() != 4 or tuple(send.shape[:2]) != (D, D):
+        raise ValueError(f"send must be [{D}, {D}, rcap, NC], "
+                         f"got {tuple(send.shape)}")
+    if send.dtype != torch.int32:
+        raise TypeError(f"send must be int32, got {send.dtype}")
+    if send.device.type == "cpu":
+        return mesh_exchange_ref(send)
+    return _launch_exchange(send)
+
+
+def _launch_exchange(send):
+    global EXCHANGE_LAUNCHES
+    if send.device.type != "cuda":
+        raise ValueError("send must lie on a CUDA device")
+    if not send.is_contiguous():
+        raise ValueError("send must be contiguous")
+    D, _, rcap, nc = send.shape
+    recv = torch.empty_like(send)
+    words = rcap * nc
+    bases = ([send[m].data_ptr() for m in range(D)]
+             + [recv[m].data_ptr() for m in range(D)])
+    if words % 4 == 0 and any(p % 16 for p in bases):
+        raise ValueError("shard slot matrices must be 16-byte aligned")
+    # The pointer tables reach the card without a host sync: a pinned
+    # staging copy, ordered on the launch's stream.
+    table = torch.tensor(bases, dtype=torch.int64).pin_memory().to(
+        send.device, non_blocking=True)
+    lib = _build.load("mesh_exchange", _EXCHANGE_SIGNATURES)
+    rc = lib.wk_mesh_exchange(
+        D, words, table.data_ptr(), table.data_ptr() + 8 * D,
+        torch.cuda.current_stream(send.device).cuda_stream,
+    )
+    _build.check(lib, rc, "wk_mesh_exchange")
+    EXCHANGE_LAUNCHES += 1
+    return recv
+
+
+def mesh_exchange_ref(send):
+    """Plain version of ``mesh_exchange``: the ring's stores, one slot
+    copy at a time, ``recv[(me + s) % D, s] = send[me, s]``."""
+    D = send.shape[0]
+    recv = torch.empty_like(send)
+    for me in range(D):
+        for s in range(D):
+            recv[(me + s) % D, s] = send[me, s]
+    return recv
+
+
+def mesh_frontier_update(
+    mesh, state, fok, fcr, alive, cost, capacity: int, window: int = 4,
+    n_parents: int | None = None, max_count: int | None = None,
+    child=None,
+):
+    """The mesh-spanning fused wide stage over ``[D, n_loc]`` tables,
+    one shard per row of the leading axis (the JAX package's per-shard
+    body of ``mesh_frontier_update``, every shard at once).
+    ``capacity`` is per shard; ``n_parents`` (per shard) or ``child``
+    gives the child bits.  Returns (state', fok', fcr', alive' [D, C],
+    overflowed [] bool, fp [3] int64, child [D, C]): the row outputs are
+    each shard's slice of the global frontier, ``overflowed`` and ``fp``
+    (mod 2^32) are global, as the JAX package's psums make them.
+
+    Phases, as in the JAX package: (1) route every alive row to shard
+    ``hash(state, fok) % D`` and place it by its rank among that
+    target's rows in its pre-rotated slot (slot ``(target - me) % D``);
+    a rank at or past ``rcap`` is a spill (overflow, never silent loss)
+    and dead or spilled rows go to a drop row; (2) ``mesh_exchange``;
+    (3) un-rotate into source-major order, move parents ahead of
+    children with a stable partition (dedup keeps the first copy and
+    domination ties the earlier row, so a parent must precede an
+    identical child, or a re-routed duplicate would bring back the child
+    bit every round and the engine's no-growth fixpoint would never
+    settle), and run the fused update with the child column.  Routing,
+    ranks and the partition are integer-exact, so each shard's outputs,
+    positions included, are the JAX package's."""
+    D = mesh.size
+    if state.dim() != 2 or state.shape[0] != D:
+        raise ValueError(f"state must be [{D}, n_loc], got {tuple(state.shape)}")
+    n_loc = state.shape[1]
+    W, G = fok.shape[2], fcr.shape[2]
+    NC = exchange_cols(W, G)
+    rcap = mesh_rcap(n_loc, D)
+    dev = state.device
+    if child is None:
+        first = n_loc if n_parents is None else int(n_parents)
+        child = (torch.arange(n_loc, device=dev) >= first).expand(D, n_loc)
+    elif n_parents is not None:
+        raise ValueError("pass either an explicit child column or "
+                         "positional n_parents, not both")
+    shard = torch.arange(D, device=dev)
+
+    # ---- phase 1: class-hash routing into fixed per-target slots ----
+    target = hashing.hash_rows(
+        [state] + [fok[..., k] for k in range(W)], MESH_ROUTE_SEED) % D
+    onehot = (target[..., None] == shard) & alive[..., None]
+    csum = torch.cumsum(onehot, 1, dtype=torch.int32)
+    rank = csum.gather(2, target[..., None]).squeeze(2) - 1
+    spill = (csum[:, -1, :] > rcap).any()
+    ok = alive & (rank < rcap)
+    slot = (target - shard[:, None]) % D
+    flat = torch.where(ok, (shard[:, None] * D + slot) * rcap + rank,
+                       D * D * rcap)
+    packed = torch.cat([
+        state[..., None], fok, fcr.to(torch.int32),
+        ok[..., None].to(torch.int32), child[..., None].to(torch.int32),
+    ], -1)
+    buf = torch.zeros(D * D * rcap + 1, NC, dtype=torch.int32, device=dev)
+    buf.index_copy_(0, flat.reshape(-1), packed.reshape(-1, NC))
+    send = buf[: D * D * rcap].view(D, D, rcap, NC)
+
+    # ---- phase 2: the exchange ----
+    recv = mesh_exchange(mesh, send)
+
+    # ---- phase 3: source-major order, parents first, the fused update --
+    src = (shard[:, None] - shard[None, :]) % D
+    table = recv[shard[:, None], src].reshape(D, D * rcap, NC)
+    ic = table[..., NC - 1] != 0
+    pc = ~ic
+    dest = torch.where(ic, pc.sum(1, keepdim=True) + torch.cumsum(ic, 1) - 1,
+                       torch.cumsum(pc, 1) - 1)
+    table = torch.empty_like(table).scatter_(
+        1, dest[..., None].expand(-1, -1, NC), table)
+    kst, kfo, kfc, al2, ovf, fp, ch2 = fused_frontier_update(
+        table[..., 0].contiguous(), table[..., 1:1 + W].contiguous(),
+        table[..., 1 + W:1 + W + G].to(torch.int16),
+        table[..., 1 + W + G] != 0, None, capacity, window=window,
+        max_count=max_count, child=table[..., NC - 1] != 0,
+    )
+    return (kst, kfo, kfc, al2, (ovf | spill).any(),
+            fp.sum(0) & hashing.MASK32, ch2)

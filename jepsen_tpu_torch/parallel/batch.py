@@ -12,7 +12,10 @@ and one batched engine launch checks a sub-batch of lanes:
      barrier 0;
   3. refutations are hash-decided, so each is confirmed by the exact CPU
      sweep in a spawned worker process, concurrently with the remaining
-     rungs.
+     rungs;
+  4. with a mesh of two or more shards and the fused backend, the lanes
+     the last rung leaves undecided get one run of the mesh-spanning
+     stage at shards × the top rung (the mesh rescue).
 
 ``True`` is sound from every rung (a surviving frontier is a witness);
 ``False`` is reported only once the exact sweep confirms it.
@@ -35,6 +38,8 @@ from jepsen_tpu_torch import models as m
 from jepsen_tpu_torch._platform import resolve_device
 from jepsen_tpu_torch.checker import wgl_cpu
 from jepsen_tpu_torch.ops import hashing, wgl
+from jepsen_tpu_torch.parallel import sharded
+from jepsen_tpu_torch.parallel.mesh import CROSS_CARD, Mesh
 
 #: Reused across batch_analysis calls (spawn startup is ~seconds).
 #: Workers run only the torch-free ``_confirm_worker`` tasks.
@@ -223,6 +228,48 @@ def _launch(st_engine: str, batch_cap: int, sub: list[dict],
     return (valid, failed_at, lossy, peak), n_pad, out[4:]
 
 
+def _mesh_rescue(model, histories, packs, idxs, exhausted, results, mesh,
+                 top_cap, confirm_refutations, confirm_max_configs, stats):
+    """One run of the mesh-spanning stage, at shards × ``top_cap``, for
+    each lane the ladder left undecided (the JAX package's order and
+    semantics).  Updates ``results``; returns the lanes still
+    undecided."""
+    D = mesh.size
+    rescue_cap = top_cap * D
+    t0 = time.perf_counter()
+    still = []
+    for k in exhausted:
+        i = idxs[k]
+        r = sharded.mesh_kernel_analysis(model, histories[i], mesh,
+                                         capacity=(rescue_cap,))
+        if r["valid?"] is True:
+            results[i] = r
+        elif r["valid?"] is False and not confirm_refutations:
+            results[i] = r  # unconfirmed: carries provisional?
+        elif r["valid?"] is False:
+            fat = int(r["kernel"]["failed-at"])
+            op_pos = int(packs[k]["bar_opid"][fat]) if fat >= 0 else None
+            cpu_res = wgl_cpu.sweep_analysis(
+                model, histories[i], max_configs=confirm_max_configs,
+                stop_at_index=op_pos)
+            results[i] = _resolve_confirmation(r, cpu_res)
+            if results[i]["valid?"] == "unknown":
+                still.append(k)
+        else:
+            # unknown at mesh capacity: the mesh-capacity report becomes
+            # the attributable cause
+            if r.get("cause"):
+                results[i] = r
+            still.append(k)
+    if stats is not None:
+        stats["mesh_rescue"] = dict(
+            capacity=rescue_cap, shards=D, lanes=len(exhausted),
+            resolved=len(exhausted) - len(still),
+            seconds=time.perf_counter() - t0,
+        )
+    return still
+
+
 def batch_analysis(
     model: m.Model,
     histories: Sequence[Sequence[dict]],
@@ -254,12 +301,21 @@ def batch_analysis(
     ``cpu_fallback`` decides the lanes the ladder leaves unknown with the
     exact sweep, in process.  ``dedup_backend``: "fused" (the default;
     the fused CUDA update on wide rungs) or "bucket".  ``device``: the
-    card unless the caller asks for "cpu".  ``stats``, when given, is
+    card unless the caller asks for "cpu" (with a mesh and no device,
+    the mesh's device).  ``mesh``: a ``parallel.mesh.Mesh``; the ladder
+    runs on ``device`` (its lanes are not placed across shards, which
+    would mean nothing on one card), and with two or more shards under
+    "fused" the lanes the last rung leaves undecided get the mesh
+    rescue before ``cpu_fallback``: ``mesh_kernel_analysis`` at shards ×
+    the top rung; True lands, False is confirmed in process by the exact
+    sweep (or stays provisional when ``confirm_refutations`` is False),
+    unknown keeps its mesh-capacity cause.  ``stats``, when given, is
     filled with per-rung records (stage, engine, capacity, lanes,
-    padded, seconds, resolved, refuted, unknowns).
+    padded, seconds, resolved, refuted, unknowns) and, when the rescue
+    ran, ``mesh_rescue`` (capacity, shards, lanes, resolved, seconds).
 
     Not in this port yet, and refused rather than ignored: the "sync"
-    engine, exact escalation stages, a device mesh, checkpoints,
+    engine, exact escalation stages, a mesh across cards, checkpoints,
     deadlines, rung admission and device confirmation.
 
     Returns one result per history, in order.
@@ -268,7 +324,11 @@ def batch_analysis(
         raise NotImplementedError(f"engine={engine!r}: only 'async' is ported")
     if exact_escalation:
         raise NotImplementedError("exact_escalation stages are not ported")
-    for name, val in (("mesh", mesh), ("checkpoint_dir", checkpoint_dir),
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise NotImplementedError(
+            "mesh must be a parallel.mesh.Mesh of logical shards on one "
+            f"device; other meshes are not ported ({CROSS_CARD})")
+    for name, val in (("checkpoint_dir", checkpoint_dir),
                       ("deadline", deadline), ("admission", admission)):
         if val is not None:
             raise NotImplementedError(f"{name} is not ported")
@@ -277,6 +337,8 @@ def batch_analysis(
             f"confirm_refutations={confirm_refutations!r}: only worker "
             "confirmation (True) or none (False) is ported")
     dedup = hashing.resolve_dedup_backend(dedup_backend)
+    if device is None and mesh is not None:
+        device = mesh.device
     device = resolve_device(device)
     histories = list(histories)
     results: list[dict | None] = [None] * len(histories)
@@ -373,6 +435,13 @@ def batch_analysis(
             seconds=time.perf_counter() - t_stage, resolved=n_true,
             refuted=n_refuted, unknowns=len(still),
         ))
+
+    if (pending and batch_caps and dedup == "fused" and mesh is not None
+            and mesh.size > 1):
+        pending = _mesh_rescue(model, histories, packs, idxs, pending,
+                               results, mesh, max(batch_caps),
+                               confirm_refutations, confirm_max_configs,
+                               stats)
 
     if pending:
         note = (f"capacity ladder {tuple(batch_caps)} exhausted with no "
