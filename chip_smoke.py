@@ -10,8 +10,11 @@ checkout (one nvcc per source, all started together), and then:
   1. prints the card's name and power limit (nvidia-smi);
   2. holds each kernel against its plain PyTorch version on the card, at
      the bench wide-rung shapes (capacity 2048, P = 8, G = 16 and 32, 8
-     lanes) and one small shape: the results must be identical (integer
-     and bit outputs, tolerance 0); times both with CUDA events;
+     lanes), on a class-heavy table of the G = 32 shape (big (state, fok)
+     classes, so that the domination prune kills) and one small shape:
+     the results must be identical (integer and bit outputs, tolerance
+     0); times both with CUDA events, and the fused update's tail
+     (``wk_fused_tail`` after one keep mask) apart from it;
   3. the exchange kernel against its plain version at the bench mesh
      rescue shapes (4 shards, rcap 19,200 / 31,488 rows of 20 / 36
      int32 columns) and a small one (tolerance 0), timed beside its
@@ -28,7 +31,11 @@ checkout (one nvcc per source, all started together), and then:
      processes, 30 % :info, 8 values, every 4th corrupted (seeds
      0-127), capacity ladder (128, 512, 2048), no exact stages, no CPU
      fallback, the fused backend, on the card; every kernel's launch
-     count must be > 0 in that run;
+     count must be > 0 in that run.  That run keeps a copy of the inputs
+     of its fused update call with the most alive candidate rows (a
+     stand-in for ``wide_kernel.fused_frontier_update``, compared on the
+     card without a host sync), and that captured ladder table is then
+     held and timed as the tables of phase 2 are;
   6. checks the verdicts of the first 48 histories against the exact CPU
      sweep (100,000-configuration budget): no disagreement among
      verdicts that are not "unknown";
@@ -50,11 +57,19 @@ It prints a ``{"kernels": [...]}`` JSON line (launches from the mesh
 ladder of phase 7, times at the G = 32 shapes) and the card line, and as
 its last line ``{"ok": true, "device": {...}}``.  It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
+
+    python3 chip_smoke.py --entry-times ROOT
+
+only times the kernels' entry points of the port package in ROOT (a
+checkout of another commit, or ``.``) at the bench shapes; run it for
+two trees in turns (parent, change, change, parent) to compare them on
+one card.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -110,6 +125,55 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int = 20) -> float:
+    """Milliseconds per call of ``fn`` on the card alone: one call
+    captured in a CUDA graph and replayed ``iters`` times between CUDA
+    events, so that the host's work per call (Python, allocation,
+    launches) is not in it.  ``_time_ms`` times calls as a caller makes
+    them, and is the larger of the two when the host is slower."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _kernel_us(fn, iters: int = 5) -> str:
+    """The device microseconds per call of each CUDA kernel one call of
+    ``fn`` runs (torch.profiler), largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0)
+                   or getattr(e, "self_cuda_time_total", 0)) / iters
+        if us > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            rows.append((us, name.replace("void ", "").split("(")[0][:40]))
+    return ", ".join(f"{name} {us:.2f}" for us, name in sorted(rows, reverse=True))
+
+
 def _tables(capacity: int, P: int, G: int, lanes: int, dev):
     """A [lanes, capacity*(1+P+G)] candidate table of probe rows, one
     seed per lane."""
@@ -122,6 +186,71 @@ def _tables(capacity: int, P: int, G: int, lanes: int, dev):
             for s in range(lanes)]
     return tuple(torch.from_numpy(np.stack([r[k] for r in rows])).to(dev)
                  for k in range(4))
+
+
+def _class_heavy(capacity: int, P: int, G: int, lanes: int, dev):
+    """A [lanes, capacity*(1+P+G)] candidate table whose 2C buffer holds
+    big (state, fok) classes, one seed per lane: half the rows fall in 8
+    classes (2 states x 4 fok values: hundreds of buffer rows each), the
+    rest spread over 64 states x 2^16 fok values (thousands of small
+    classes), so that a class super-bucket's list holds several classes.
+    Each row's counts are a level in [0, m] plus sparse +1 noise, clipped
+    to m = P + 1, so that rows of one class dominate each other often;
+    half the rows copy another row, about 15 % are dead."""
+    import numpy as np
+    import torch
+
+    m = P + 1
+    out = []
+    for s in range(lanes):
+        rng = np.random.default_rng(1000 + s)
+        n = capacity * (1 + P + G)
+        big = rng.random(n) < 0.5
+        st = np.where(big, rng.integers(0, 2, n), rng.integers(0, 64, n))
+        fo = np.where(big, rng.integers(0, 4, n), rng.integers(0, 1 << 16, n))
+        lvl = rng.integers(0, m + 1, (n, 1))
+        fc = np.minimum(m, lvl + (rng.random((n, G)) < 0.15))
+        src = rng.integers(0, n, n // 2)
+        st[: n // 2], fo[: n // 2], fc[: n // 2] = st[src], fo[src], fc[src]
+        out.append((st.astype(np.int32), fo.astype(np.int32)[:, None],
+                    fc.astype(np.int16), rng.random(n) < 0.85))
+    return tuple(torch.from_numpy(np.stack([r[k] for r in out])).to(dev)
+                 for k in range(4))
+
+
+class _Capture:
+    """Stands in for ``wide_kernel.fused_frontier_update`` during one
+    ladder run and keeps a copy of the inputs of its call with the most
+    alive candidate rows.  Calls of one shape are compared on the card
+    (``torch.where`` on the alive counts), so the run takes no extra
+    host sync; a call of a larger shape replaces the copy."""
+
+    def __init__(self, wk):
+        self.fn = wk.fused_frontier_update
+        self.key = None
+        self.tables = None
+        self.count = None
+
+    def __call__(self, state, fok, fcr, alive, cost, capacity, window=4,
+                 n_parents=None, max_count=None, child=None):
+        import torch
+
+        if child is None:
+            key = (tuple(state.shape), tuple(fok.shape), tuple(fcr.shape),
+                   capacity, window, n_parents, max_count)
+            cnt = alive.sum()
+            args = (state, fok, fcr, alive)
+            if self.key is None or (key != self.key and state.numel()
+                                    > self.tables[0].numel()):
+                self.key, self.count = key, cnt
+                self.tables = [t.clone() for t in args]
+            elif key == self.key:
+                more = cnt > self.count
+                for t, x in zip(self.tables, args):
+                    t.copy_(torch.where(more, x, t))
+                self.count = torch.maximum(self.count, cnt)
+        return self.fn(state, fok, fcr, alive, cost, capacity, window=window,
+                       n_parents=n_parents, max_count=max_count, child=child)
 
 
 def _max_abs_err(a, b) -> float:
@@ -138,12 +267,16 @@ def _max_abs_err(a, b) -> float:
     return float(err)
 
 
-def _work(state, fok, fcr, alive, capacity: int, fused: bool):
+def _work(state, fok, fcr, alive, capacity: int, part: str):
     """(bytes, ops) the function must move and do on these inputs: each
     input read once and each output written once; the two row-hash
-    lanes of every row; for the fused update also the fingerprint
-    hashes of its output rows and the pairwise domination tests within
-    each (state, fok) class of its 2C buffer (this data's class sizes)."""
+    lanes of every row.  ``part``: "keep" (the keep mask), "fused" (the
+    fused update: also the fingerprint hashes of its output rows and the
+    pairwise domination tests within each (state, fok) class of its 2C
+    buffer, this data's class sizes) or "tail" (the fused update after
+    the keep mask: the keep mask and the buffer's rows in, the class
+    hash of each buffer row, the domination tests, the outputs and
+    their fingerprint)."""
     import torch
 
     from jepsen_tpu_torch.ops import wide_kernel as wk
@@ -152,12 +285,17 @@ def _work(state, fok, fcr, alive, capacity: int, fused: bool):
     W, G = fok.shape[2], fcr.shape[2]
     row_in = 4 + 4 * W + 2 * G + 1
     cols = 1 + W + G
-    nbytes = L * n * row_in + L * n + 4 * L  # + keep mask, overflow flag
-    ops = L * n * 2 * cols * HASH_OPS_PER_COL
-    if not fused:
-        return nbytes, ops
+    if part == "keep":
+        nbytes = L * n * row_in + L * n + 4 * L  # + keep mask, overflow flag
+        return nbytes, L * n * 2 * cols * HASH_OPS_PER_COL
     C = capacity
-    nbytes = L * n * row_in + L * (C * (row_in + 1) + 8 + 12)
+    out_bytes = L * (C * (row_in + 1) + 8 + 12)
+    if part == "fused":
+        nbytes = L * n * row_in + out_bytes
+        ops = L * n * 2 * cols * HASH_OPS_PER_COL
+    else:
+        nbytes = L * n + out_bytes  # the keep mask in
+        ops = 0
     keep, _ovf = wk.keep_mask_ref(state, fok, fcr, alive)
     for l in range(L):
         sel = keep[l].nonzero().squeeze(1)[: 2 * C]
@@ -165,6 +303,9 @@ def _work(state, fok, fcr, alive, capacity: int, fused: bool):
         _u, counts = torch.unique(key, dim=0, return_counts=True)
         pairs = int((counts * (counts - 1)).sum())
         ops += pairs * 2 * G + min(int(sel.numel()), C) * 2 * cols * HASH_OPS_PER_COL
+        if part == "tail":
+            nbytes += int(sel.numel()) * (row_in - 1)
+            ops += int(sel.numel()) * (1 + W) * HASH_OPS_PER_COL
     return nbytes, ops
 
 
@@ -179,52 +320,88 @@ def check_kernels(dev, wk) -> dict:
     bench-shape measurements per kernel."""
     import torch
 
-    shapes = [("small", 64, 4, 3, 2), ("bench-G16", 2048, 8, 16, 8),
-              ("bench-G32", 2048, 8, 32, 8)]
+    shapes = [("small", 64, 4, 3, 2, _tables), ("bench-G16", 2048, 8, 16, 8, _tables),
+              ("bench-G32", 2048, 8, 32, 8, _tables),
+              ("class-heavy", 2048, 8, 32, 8, _class_heavy)]
     out = {}
-    for tag, C, P, G, lanes in shapes:
-        st, fo, fc, al = _tables(C, P, G, lanes, dev)
-        n = st.shape[1]
-        m = P + 1
-        keep_k = wk.keep_mask(st, fo, fc, al)
-        keep_r = wk.keep_mask_ref(st, fo, fc, al)
-        torch.cuda.synchronize()
-        err_keep = _max_abs_err(keep_k, keep_r)
-        fused_k = wk.fused_frontier_update(st, fo, fc, al, None, C,
-                                           n_parents=C, max_count=m)
-        fused_r = wk.fused_frontier_update_ref(st, fo, fc, al, C, 4, C, m)
-        torch.cuda.synchronize()
-        err_fused = _max_abs_err(fused_k, fused_r)
-        alive_rows = int(fused_r[3].sum())
-        ovf = int(fused_r[4].sum())
-        print(f"kernels[{tag}]: lanes={lanes} n={n} C={C} G={G} "
-              f"keep max_abs_err={err_keep} fused max_abs_err={err_fused} "
-              f"(tolerance 0; alive out rows {alive_rows}, overflowed lanes {ovf})",
-              flush=True)
-        if err_keep != 0 or err_fused != 0:
-            raise AssertionError(f"{tag}: kernel disagrees with its plain version")
-        if tag == "small":
-            continue
-        keep_ms = _time_ms(lambda: wk.keep_mask(st, fo, fc, al), 20)
-        keep_plain = _time_ms(lambda: wk.keep_mask_ref(st, fo, fc, al), 3, 1)
-        fused_ms = _time_ms(lambda: wk.fused_frontier_update(
-            st, fo, fc, al, None, C, n_parents=C, max_count=m), 10)
-        fused_plain = _time_ms(lambda: wk.fused_frontier_update_ref(
-            st, fo, fc, al, C, 4, C, m), 2, 1)
-        kb, kbb = _bound_ms(*_work(st, fo, fc, al, C, fused=False))
-        fb, fbb = _bound_ms(*_work(st, fo, fc, al, C, fused=True))
-        print(f"timing[{tag}]: keep_mask {keep_ms:.4f} ms (plain "
-              f"{keep_plain:.4f} ms, bound {kb:.4f} ms by {kbb}); "
-              f"fused_frontier_update {fused_ms:.4f} ms (plain "
-              f"{fused_plain:.4f} ms, bound {fb:.4f} ms by {fbb})", flush=True)
-        out[tag] = {
-            "keep_mask": dict(max_abs_err=err_keep, ms=keep_ms,
-                              plain_ms=keep_plain, bound_ms=kb, bound_by=kbb),
-            "fused_frontier_update": dict(max_abs_err=max(err_keep, err_fused),
-                                          ms=fused_ms, plain_ms=fused_plain,
-                                          bound_ms=fb, bound_by=fbb),
-        }
+    for tag, C, P, G, lanes, make in shapes:
+        out[tag] = check_fused_table(tag, wk, *make(C, P, G, lanes, dev), C,
+                                     C, P + 1, timed=tag != "small")
     return out
+
+
+def check_fused_table(tag, wk, st, fo, fc, al, C, n_parents, m, window=4,
+                      timed=True) -> dict:
+    """Both kernels against their plain versions on one table (tolerance
+    0); when ``timed``, each timed beside its plain version and its
+    bound, and the fused update's tail (``wk_fused_tail`` after one
+    ``wk_keep_mask``) timed apart from it.  Returns the measurements."""
+    import torch
+
+    lanes, n = st.shape
+    G = fc.shape[2]
+    keep_k = wk.keep_mask(st, fo, fc, al, window)
+    keep_r = wk.keep_mask_ref(st, fo, fc, al, window)
+    torch.cuda.synchronize()
+    err_keep = _max_abs_err(keep_k, keep_r)
+    fused_k = wk.fused_frontier_update(st, fo, fc, al, None, C, window,
+                                       n_parents=n_parents, max_count=m)
+    fused_r = wk.fused_frontier_update_ref(st, fo, fc, al, C, window,
+                                           n_parents, m)
+    torch.cuda.synchronize()
+    err_fused = _max_abs_err(fused_k, fused_r)
+    keep_l, _ovf, chunks = wk._launch_keep(st, fo, fc, al, window, True)
+    m_k = min(m, wk.hashing.MXU_PRUNE_MAX_COUNT)
+    tail_k = wk._launch_tail(st, fo, fc, keep_l, chunks, C, n_parents, m_k)
+    torch.cuda.synchronize()
+    err_tail = _max_abs_err(tail_k, fused_r)
+    alive_rows = int(fused_r[3].sum())
+    ovf = int(fused_r[4].sum())
+    print(f"kernels[{tag}]: lanes={lanes} n={n} C={C} G={G} "
+          f"keep max_abs_err={err_keep} fused max_abs_err={err_fused} "
+          f"tail max_abs_err={err_tail} (tolerance 0; alive out rows "
+          f"{alive_rows}, overflowed lanes {ovf})", flush=True)
+    if err_keep != 0 or err_fused != 0 or err_tail != 0:
+        raise AssertionError(f"{tag}: kernel disagrees with its plain version")
+    if not timed:
+        return {}
+    keep_ms = _time_ms(lambda: wk.keep_mask(st, fo, fc, al, window), 20)
+    keep_plain = _time_ms(lambda: wk.keep_mask_ref(st, fo, fc, al, window), 3, 1)
+    fused_ms = _time_ms(lambda: wk.fused_frontier_update(
+        st, fo, fc, al, None, C, window, n_parents=n_parents, max_count=m), 20)
+    fused_plain = _time_ms(lambda: wk.fused_frontier_update_ref(
+        st, fo, fc, al, C, window, n_parents, m), 2, 1)
+    def tail():
+        return wk._launch_tail(st, fo, fc, keep_l, chunks, C, n_parents, m_k)
+
+    tail_ms = _time_ms(tail, 20)
+    keep_dev = _device_ms(lambda: wk.keep_mask(st, fo, fc, al, window))
+    fused_dev = _device_ms(lambda: wk.fused_frontier_update(
+        st, fo, fc, al, None, C, window, n_parents=n_parents, max_count=m))
+    tail_dev = _device_ms(tail)
+    kb, kbb = _bound_ms(*_work(st, fo, fc, al, C, "keep"))
+    fb, fbb = _bound_ms(*_work(st, fo, fc, al, C, "fused"))
+    tb, tbb = _bound_ms(*_work(st, fo, fc, al, C, "tail"))
+    print(f"timing[{tag}]: keep_mask {keep_ms:.4f} ms per call, "
+          f"{keep_dev:.4f} ms on the card (plain {keep_plain:.4f} ms, bound "
+          f"{kb:.4f} ms by {kbb}); fused_frontier_update {fused_ms:.4f} ms "
+          f"per call, {fused_dev:.4f} ms on the card (plain "
+          f"{fused_plain:.4f} ms, bound {fb:.4f} ms by {fbb}); fused tail "
+          f"{tail_ms:.4f} ms per call, {tail_dev:.4f} ms on the card (bound "
+          f"{tb:.4f} ms by {tbb})", flush=True)
+    print(f"keep_kernels[{tag}]: us per call "
+          f"{_kernel_us(lambda: wk.keep_mask(st, fo, fc, al, window))}", flush=True)
+    print(f"tail_kernels[{tag}]: us per call {_kernel_us(tail)}", flush=True)
+    return {
+        "keep_mask": dict(max_abs_err=err_keep, ms=keep_ms, device_ms=keep_dev,
+                          plain_ms=keep_plain, bound_ms=kb, bound_by=kbb),
+        "fused_frontier_update": dict(max_abs_err=max(err_keep, err_fused),
+                                      ms=fused_ms, device_ms=fused_dev,
+                                      plain_ms=fused_plain, bound_ms=fb,
+                                      bound_by=fbb),
+        "fused_tail": dict(max_abs_err=err_tail, ms=tail_ms,
+                           device_ms=tail_dev, bound_ms=tb, bound_by=tbb),
+    }
 
 
 def check_exchange(dev, wk, mesh_mod) -> dict:
@@ -258,12 +435,17 @@ def check_exchange(dev, wk, mesh_mod) -> dict:
         ms = _time_ms(lambda: wk.mesh_exchange(mesh, send), 50)
         plain = _time_ms(lambda: wk.mesh_exchange_ref(send), 20)
         lib_ms = _time_ms(lambda: send[src, slot[None, :]], 50)
+        dev_ms = _device_ms(lambda: wk.mesh_exchange(mesh, send), 50)
+        lib_dev = _device_ms(lambda: send[src, slot[None, :]], 50)
         bound, by = _bound_ms(2 * send.numel() * 4, 0)
-        print(f"timing[{tag}]: mesh_exchange {ms:.4f} ms (plain {plain:.4f} "
-              f"ms, library gather {lib_ms:.4f} ms, bound {bound:.4f} ms by "
-              f"{by}: {2 * send.numel() * 4} bytes)", flush=True)
-        out[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                        library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        print(f"timing[{tag}]: mesh_exchange {ms:.4f} ms per call, "
+              f"{dev_ms:.4f} ms on the card (plain {plain:.4f} ms, library "
+              f"gather {lib_ms:.4f} ms per call, {lib_dev:.4f} ms on the "
+              f"card, bound {bound:.4f} ms by {by}: {2 * send.numel() * 4} "
+              f"bytes)", flush=True)
+        out[tag] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                        plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
+                        bound_by=by)
     return out["rescue-G32"]
 
 
@@ -292,6 +474,46 @@ def check_fused_child(dev, wk) -> None:
     if err != 0:
         raise AssertionError("fused update with child= disagrees with its "
                              "plain version")
+
+
+def entry_times(dev, wk, mesh_mod) -> dict:
+    """``--entry-times``: the public entry points of the imported port
+    package (``keep_mask``, ``fused_frontier_update``, ``mesh_exchange``)
+    at the bench shapes, per call (``_time_ms``) and on the card alone
+    (``_device_ms``; null where a graph cannot capture the call), for a
+    side-by-side run of two commits in one call on one card."""
+    import torch
+
+    out = {"module": wk.__file__}
+    for tag, make, G in (("bench-G16", _tables, 16), ("bench-G32", _tables, 32),
+                         ("class-heavy", _class_heavy, 32)):
+        st, fo, fc, al = make(2048, 8, G, 8, dev)
+
+        def fused():
+            return wk.fused_frontier_update(st, fo, fc, al, None, 2048,
+                                            n_parents=2048, max_count=9)
+
+        def keep():
+            return wk.keep_mask(st, fo, fc, al)
+
+        out[tag] = {"keep_ms": _time_ms(keep, 20), "keep_device_ms": _device_ms(keep),
+                    "fused_ms": _time_ms(fused, 20),
+                    "fused_device_ms": _device_ms(fused)}
+    for tag, rcap, nc in (("rescue-G16", 19200, 20), ("rescue-G32", 31488, 36)):
+        mesh = mesh_mod.make_mesh(MESH_SHARDS)
+        send = torch.randint(-2**31, 2**31 - 1, (MESH_SHARDS, MESH_SHARDS, rcap, nc),
+                             dtype=torch.int32, device=dev)
+
+        def exchange():
+            return wk.mesh_exchange(mesh, send)
+
+        try:
+            dev_ms = _device_ms(exchange, 50)
+        except RuntimeError:
+            dev_ms = None
+        out[tag] = {"exchange_ms": _time_ms(exchange, 50),
+                    "exchange_device_ms": dev_ms}
+    return out
 
 
 def _pool_table(n: int, P: int, G: int, pool: int, seed: int, dev):
@@ -435,8 +657,9 @@ def check_mesh_engine(batch, sharded, mesh_mod, model, hists, plain_results):
 
 
 def run_ladder(batch, wk, m, genhist):
-    """Phase 3: the bench ladder on the card; returns (results,
-    histories, stats, seconds, launch counts)."""
+    """Phase 5: the bench ladder on the card; returns (model, results,
+    histories, stats, seconds, launch counts, the ``_Capture`` of its
+    fused update calls)."""
     model = m.CASRegister(None)
     hists = []
     for i in range(N_HISTORIES):
@@ -448,16 +671,37 @@ def run_ladder(batch, wk, m, genhist):
         hists.append(hh)
     batch.warm_confirm_pool()
     stats: dict = {}
+    capture = _Capture(wk)
+    wk.fused_frontier_update = capture
     wk.reset_counts()
     t0 = time.perf_counter()
-    results = batch.batch_analysis(
-        model, hists, capacity=CAPS, exact_escalation=(), cpu_fallback=False,
-        dedup_backend="fused", device="cuda", stats=stats,
-    )
+    try:
+        results = batch.batch_analysis(
+            model, hists, capacity=CAPS, exact_escalation=(), cpu_fallback=False,
+            dedup_backend="fused", device="cuda", stats=stats,
+        )
+    finally:
+        wk.fused_frontier_update = capture.fn
     seconds = time.perf_counter() - t0
     counts = {"keep_mask": wk.KEEP_LAUNCHES,
               "fused_frontier_update": wk.FUSED_LAUNCHES}
-    return model, results, hists, stats, seconds, counts
+    return model, results, hists, stats, seconds, counts, capture
+
+
+def check_captured(wk, capture) -> dict:
+    """Phase 5b: the inputs of phase 5's fused update call with the most
+    alive candidate rows, held against the plain versions and timed as
+    the bench tables are."""
+    if capture.tables is None:
+        raise AssertionError("the ladder made no fused update call")
+    _s, _f, _g, capacity, window, n_parents, max_count = capture.key
+    st = capture.tables[0]
+    print(f"captured: the ladder's fused call with the most alive "
+          f"candidate rows: {int(capture.count)} of {st.numel()} "
+          f"(lanes {st.shape[0]}, capacity {capacity}, n_parents "
+          f"{n_parents}, max_count {max_count})", flush=True)
+    return check_fused_table("captured-ladder", wk, *capture.tables, capacity,
+                             n_parents, max_count, window)
 
 
 def profile_ladder(batch, model, hists) -> None:
@@ -501,6 +745,12 @@ def profile_ladder(batch, model, hists) -> None:
     for e in sorted(events, key=dev_us, reverse=True)[:15]:
         print(f"profile: {dev_us(e) / 1e3:.2f} ms device, {e.count} calls: "
               f"{e.key[:100]}", flush=True)
+    # the port's own kernels (csrc/*.cu, in anonymous namespaces)
+    for e in sorted(events, key=dev_us, reverse=True):
+        if "(anonymous namespace)::k_" in e.key:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            print(f"profile: port kernel {name.split('(')[0]}: "
+                  f"{dev_us(e) / 1e3:.3f} ms device, {e.count} calls", flush=True)
 
 
 def main(argv=None) -> int:
@@ -511,7 +761,13 @@ def main(argv=None) -> int:
                     help="after the checks, time the warm ladder with and "
                     "without worker confirmations and trace one run with "
                     "torch.profiler")
+    ap.add_argument("--entry-times", metavar="ROOT",
+                    help="only time the kernels' entry points of the port "
+                    "package under ROOT (another commit's checkout) at the "
+                    "bench shapes, print one entry_times JSON line, and exit")
     args = ap.parse_args(argv)
+    if args.entry_times:
+        sys.path.insert(0, os.path.abspath(args.entry_times))
     import torch
 
     if not torch.cuda.is_available():
@@ -537,6 +793,9 @@ def main(argv=None) -> int:
     sources = ["wide_kernel", "mesh_exchange"]
     t0 = time.perf_counter()
     _build.build(sources)
+    if args.entry_times:
+        print("entry_times: " + json.dumps(entry_times(dev, wk, mesh_mod)))
+        return 0
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
           f"{len(sources)} sources in parallel)", flush=True)
     for name in sources:
@@ -551,7 +810,7 @@ def main(argv=None) -> int:
     check_fused_child(dev, wk)
     check_cross_path(dev, wk, mesh_mod, sharded)
 
-    model, results, hists, stats, seconds, counts = run_ladder(
+    model, results, hists, stats, seconds, counts, capture = run_ladder(
         batch, wk, m, genhist)
     total_ops = sum(len(hh) for hh in hists) // 2
     unknowns = sum(1 for r in results if r["valid?"] == "unknown")
@@ -564,6 +823,8 @@ def main(argv=None) -> int:
     for name, c in counts.items():
         if c <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    check_captured(wk, capture)
+    del capture
 
     sample = hists[:CPU_SAMPLE]
     pool = batch.confirm_pool()
@@ -600,6 +861,7 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": mesh_counts[name],
          "max_abs_err": bench[name]["max_abs_err"], "ms": bench[name]["ms"],
+         "device_ms": bench[name]["device_ms"],
          "plain_ms": bench[name]["plain_ms"],
          "bound_ms": bench[name]["bound_ms"],
          "bound_by": bench[name]["bound_by"],

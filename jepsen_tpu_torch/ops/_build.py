@@ -106,6 +106,16 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         return lib
 
 
+def stream(tensor) -> int:
+    """The raw handle of the current CUDA stream of ``tensor``'s device,
+    the stream the kernels launch on, read without building a
+    ``torch.cuda.Stream`` object (a few microseconds of host time per
+    launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if rc != 0:

@@ -11,9 +11,10 @@
 // ~7 MB per lane with the int16 counts, far more than one SM's 227 KB of
 // shared memory, but a 16-lane sub-batch (~110 MB) streams through HBM
 // once per pass and the per-lane scratch (hashes, bucket lists) sits in
-// the 50 MB L2.  The dedup passes are bound by bytes moved; the
-// domination prune on the 2C = 4096-row buffer is an all-pairs integer
-// compare (up to 1.7e7 pairs per lane), bound by operations.
+// the 50 MB L2.  The dedup passes are bound by bytes moved.  The tail
+// works on the 2C = 4096-row buffer (0.3 MB per lane at G = 32): the
+// bytes it must move take about a microsecond, so launches and the
+// domination tests within each (state, fok) class bound it.
 //
 // Design (what the Pallas kernel computes, not how it tiled VMEM):
 //   The Pallas kernel is one sequential grid sweep with every table in
@@ -35,18 +36,42 @@
 //      any order, so the result is deterministic without sorting it.
 //      Each block also counts its kept rows (__syncthreads_count) for
 //      the compaction.
-//   Fused tail:
-//   6. k_exclusive_scan over the per-block kept counts: block offsets.
-//   7. k_compact1: stable block scan (warp shuffles) of the keep mask;
-//      survivors go to the 2C buffer in candidate order, with their
-//      child bit (an explicit column on the mesh path, else positional).
-//   8. k_prune: one thread per buffer row j tests every alive row i:
-//      same (state, fok) class, fcr_i <= min(fcr_j, m-1) on every group
-//      (the saturating one-hot contract of exact_prune_mxu, as integer
-//      compares), and (not the reverse, or i earlier).
-//   9. k_compact2: one block per lane scans the buffer's survivors to
-//      the capacity-row output, zero-fills dead rows, and sums the
-//      order-insensitive fingerprint (mod 2^32, unsigned atomics wrap).
+//   Fused tail (wk_fused_tail):
+//   6. k_compact1, one block per 512-row chunk of the keep mask: the
+//      block adds up k_kill's kept counts of the lane's earlier chunks
+//      itself (no scan launch), scans its chunk, and copies its
+//      survivors' columns into consecutive buffer rows as whole 16-, 8-
+//      or 4-byte words, so that neighbouring threads store neighbouring
+//      words.  Each buffer row gets its child bit (an explicit column on
+//      the mesh path, else positional) and its class hash (state and fok
+//      only), counted into one of S = Cb / 8 class super-buckets.
+//   7. k_exclusive_scan and k_class_scatter: the lane's class
+//      super-bucket lists, end to end (histogram, scan, atomic scatter).
+//   8. k_prune_tiles<GW> (G in {4, 8, 16, 32, 64}; k_prune_list, one
+//      thread per row with scalar compares, takes other shapes): row j
+//      dies iff a row of its class dominates it (the saturating one-hot
+//      contract of exact_prune_mxu, as integer compares), and only the
+//      rows of j's list are tested.  A block takes 64 list positions as
+//      its j rows and stages a slice of their lists' span through shared
+//      memory (cp.async, double-buffered); the count compares are 16-bit
+//      SIMD (max/min.s16x2), two groups per instruction.  A big class
+//      (hundreds of rows, as real frontiers have) is compared block
+//      against tile, every thread reading the same staged row; a
+//      singleton costs a few compares.
+//   9. k_compact2, one block per 512 buffer rows: it counts the lane's
+//      survivors before its chunk itself, copies its survivors as whole
+//      words, adds their fingerprint (per-warp sums, unsigned atomics,
+//      mod 2^32 in any order), zeroes its span of output rows past the
+//      survivors, and writes the overflow flag.
+//   Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W), on the card
+//   alone: the tail takes 0.045 ms on the bench G = 32 table (bound
+//   0.0013 ms by bytes; prune 0.015, compactions 0.010 and 0.011, lists
+//   0.005) and 0.077 ms on the class-heavy table (prune 0.046; bound
+//   0.0037 ms by operations); the whole update 0.21 ms, of which the
+//   keep mask takes 0.16 ms.  Over the bench ladder's 136 calls the
+//   prune takes 1.7 ms on the card (chip_smoke.py --profile).  A call
+//   from Python can cost more host time than card time (allocation,
+//   ctypes, about a dozen launches).
 //
 // C interface for ctypes: every entry point launches on the caller's
 // stream, allocates nothing (the caller passes every buffer), does not
@@ -68,6 +93,12 @@ constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr int kChunkRows = 512;
 constexpr int kRowThreads = 256;
 constexpr int kScanThreads = 1024;
+// The tiled prune: j rows per block (one per thread) and i rows per
+// staged tile; blocks that share one j tile, each with a slice of its
+// list span; fok words it stages (P <= 128).
+constexpr int kPruneRows = 64;
+constexpr int kPruneSplit = 4;
+constexpr int kPruneMaxW = 4;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -158,12 +189,11 @@ __global__ void k_hash_count(int n, int W, int G, int S, int sb_shift,
   if (alive[r]) atomicAdd(&cnt[static_cast<int64_t>(l) * S + (a >> sb_shift)], 1);
 }
 
-// Per-lane exclusive scan of in[l, 0..S) into out (and out2 when given);
-// total[l] gets the lane's sum when given.  One block per lane.
+// Per-lane exclusive scan of in[l, 0..S) into out (and out2 when given).
+// One block per lane.
 __global__ void k_exclusive_scan(int S, const int32_t* __restrict__ in,
                                  int32_t* __restrict__ out,
-                                 int32_t* __restrict__ out2,
-                                 int32_t* __restrict__ total) {
+                                 int32_t* __restrict__ out2) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * S;
   int carry = 0;
   for (int s0 = 0; s0 < S; s0 += blockDim.x) {
@@ -177,7 +207,6 @@ __global__ void k_exclusive_scan(int S, const int32_t* __restrict__ in,
     }
     carry += tot;
   }
-  if (total != nullptr && threadIdx.x == 0) total[blockIdx.x] = carry;
 }
 
 __global__ void k_scatter(int n, int S, int sb_shift,
@@ -264,60 +293,393 @@ __global__ void k_kill(int n, int S, int sb_shift, int window,
 }
 
 // ---------------------------------------------------------------------------
-// Fused tail: compaction to the 2C buffer, domination prune, compaction
-// to capacity with the fingerprint
+// Fused tail: compaction to the 2C buffer with the class partition, the
+// class-partitioned domination prune, compaction to capacity with the
+// fingerprint
 // ---------------------------------------------------------------------------
 
-// A survivor's child bit: the explicit child column when given (the mesh
-// path, whose routing scrambled candidate order), else positional (rows
-// at or past n_parents are expansions; none when n_parents < 0).
-__global__ void k_compact1(int n, int Cb, int W, int G, int n_parents,
-                           const int32_t* __restrict__ state,
-                           const uint32_t* __restrict__ fok,
-                           const int16_t* __restrict__ fcr,
-                           const uint8_t* __restrict__ child,
-                           const uint8_t* __restrict__ keep,
-                           const int32_t* __restrict__ chunk_off,
-                           int32_t* __restrict__ bst,
-                           uint32_t* __restrict__ bfo,
-                           int16_t* __restrict__ bfc,
-                           uint8_t* __restrict__ bch) {
-  const int l = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t r = static_cast<int64_t>(l) * n + i;
-  const int k = (i < n) ? keep[r] : 0;
-  int tot;
-  const int ex = block_exclusive_scan(k, &tot);
-  const int rank = chunk_off[static_cast<int64_t>(l) * gridDim.x + blockIdx.x] + ex;
-  if (k && rank < Cb) {
-    const int64_t o = static_cast<int64_t>(l) * Cb + rank;
-    bst[o] = state[r];
-    for (int w = 0; w < W; ++w) bfo[o * W + w] = fok[r * W + w];
-    for (int g = 0; g < G; ++g) bfc[o * G + g] = fcr[r * G + g];
-    bch[o] = (child != nullptr)
-                 ? static_cast<uint8_t>(child[r] != 0)
-                 : static_cast<uint8_t>(n_parents >= 0 && i >= n_parents);
+// Copy k rows of rb bytes with the whole block: destination row t (rows
+// consecutive from dst) <- source row sidx[t] of src, in the widest word
+// that divides rb and both bases, so that neighbouring threads store
+// neighbouring words.
+template <typename V>
+__device__ __forceinline__ void copy_rows_v(const uint8_t* __restrict__ src,
+                                            uint8_t* __restrict__ dst, int rb,
+                                            const int32_t* sidx, int k) {
+  const int per = rb / static_cast<int>(sizeof(V));
+  const int total = k * per;
+  for (int u = threadIdx.x; u < total; u += blockDim.x) {
+    const int t = u / per;
+    const int c = u - t * per;
+    reinterpret_cast<V*>(dst)[u] =
+        reinterpret_cast<const V*>(src + static_cast<int64_t>(sidx[t]) * rb)[c];
   }
 }
 
-__global__ void k_prune(int Cb, int W, int G, int m,
-                        const int32_t* __restrict__ nk0,
-                        const int32_t* __restrict__ bst,
-                        const uint32_t* __restrict__ bfo,
-                        const int16_t* __restrict__ bfc,
-                        uint8_t* __restrict__ dead) {
+__device__ void copy_rows(const void* src, void* dst, int rb,
+                          const int32_t* sidx, int k) {
+  if (rb <= 0 || k <= 0) return;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src) |
+                      reinterpret_cast<uintptr_t>(dst) |
+                      static_cast<uintptr_t>(rb);
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  uint8_t* d = static_cast<uint8_t*>(dst);
+  if ((a & 15) == 0) {
+    copy_rows_v<int4>(s, d, rb, sidx, k);
+  } else if ((a & 7) == 0) {
+    copy_rows_v<int2>(s, d, rb, sidx, k);
+  } else if ((a & 3) == 0) {
+    copy_rows_v<int>(s, d, rb, sidx, k);
+  } else if ((a & 1) == 0) {
+    copy_rows_v<short>(s, d, rb, sidx, k);
+  } else {
+    copy_rows_v<uint8_t>(s, d, rb, sidx, k);
+  }
+}
+
+template <typename V>
+__device__ __forceinline__ void zero_words(uint8_t* dst, int64_t words) {
+  const V z{};
+  for (int64_t u = threadIdx.x; u < words; u += blockDim.x) {
+    reinterpret_cast<V*>(dst)[u] = z;
+  }
+}
+
+// Zero k consecutive rows of rb bytes from dst with the whole block, in
+// the widest word that divides the span and its base.
+__device__ void zero_rows(void* dst, int rb, int k) {
+  const int64_t bytes = static_cast<int64_t>(rb) * k;
+  if (bytes <= 0) return;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst) | static_cast<uintptr_t>(bytes);
+  uint8_t* d = static_cast<uint8_t*>(dst);
+  if ((a & 15) == 0) {
+    zero_words<int4>(d, bytes / 16);
+  } else if ((a & 7) == 0) {
+    zero_words<int2>(d, bytes / 8);
+  } else if ((a & 3) == 0) {
+    zero_words<int>(d, bytes / 4);
+  } else if ((a & 1) == 0) {
+    zero_words<short>(d, bytes / 2);
+  } else {
+    zero_words<uint8_t>(d, bytes);
+  }
+}
+
+// Two signed 16-bit lanes per word: Hopper's max/min.s16x2.
+__device__ __forceinline__ uint32_t vmax_s16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t vmin_s16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("min.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+                 "n"(N)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The first compaction.  Block (b, l) takes the keep mask's chunk b of
+// lane l.  Its offset in the buffer is the sum of k_kill's kept counts
+// of the lane's earlier chunks, which the block adds up itself (no scan
+// launch); block 0 writes the lane's total nk0.  The chunk's survivors
+// go to shared memory in candidate order, and the block copies their
+// columns as whole words into consecutive buffer rows.  Each buffer row
+// also gets its child bit (the explicit child column on the mesh path,
+// whose routing scrambled candidate order, else positional: rows at or
+// past n_parents are expansions, none when n_parents < 0), its class
+// hash (state and fok only: row_hash's first lane with G = 0), counted
+// into the lane's class super-bucket S = 2^cbits, and dead = 0.  Block
+// 0 also zeroes the lane's fingerprint words for k_compact2.
+__global__ void __launch_bounds__(kChunkRows)
+    k_compact1(int n, int nchunks, int Cb, int W, int G, int n_parents, int S,
+               int cb_shift, const int32_t* __restrict__ state,
+               const uint32_t* __restrict__ fok,
+               const int16_t* __restrict__ fcr,
+               const uint8_t* __restrict__ child,
+               const uint8_t* __restrict__ keep,
+               const int32_t* __restrict__ chunk_cnt,
+               int32_t* __restrict__ nk0, int32_t* __restrict__ bst,
+               uint32_t* __restrict__ bfo, int16_t* __restrict__ bfc,
+               uint8_t* __restrict__ bch, uint8_t* __restrict__ dead,
+               uint32_t* __restrict__ bcls, int32_t* __restrict__ ccnt,
+               uint64_t* __restrict__ fp) {
+  __shared__ int32_t sidx[kChunkRows];
+  const int l = blockIdx.y;
+  const int b = blockIdx.x;
+  if (b == 0 && threadIdx.x < 3) fp[static_cast<int64_t>(l) * 3 + threadIdx.x] = 0u;
+  int before = 0, all = 0;
+  for (int c = threadIdx.x; c < nchunks; c += blockDim.x) {
+    const int v = chunk_cnt[static_cast<int64_t>(l) * nchunks + c];
+    all += v;
+    if (c < b) before += v;
+  }
+  block_exclusive_scan(before, &before);
+  block_exclusive_scan(all, &all);
+  if (b == 0 && threadIdx.x == 0) nk0[l] = all;
+  const int i = b * kChunkRows + threadIdx.x;
+  const int64_t lane_n = static_cast<int64_t>(l) * n;
+  const int k = (i < n) ? keep[lane_n + i] : 0;
+  int tot;
+  const int ex = block_exclusive_scan(k, &tot);
+  if (k) sidx[ex] = i;
+  __syncthreads();
+  const int kc = max(0, min(tot, Cb - before));
+  if (kc == 0) return;
+  const int64_t o0 = static_cast<int64_t>(l) * Cb + before;
+  copy_rows(state + lane_n, bst + o0, 4, sidx, kc);
+  copy_rows(fok + lane_n * W, bfo + o0 * W, 4 * W, sidx, kc);
+  copy_rows(fcr + lane_n * G, bfc + o0 * G, 2 * G, sidx, kc);
+  if (static_cast<int>(threadIdx.x) < kc) {
+    const int src = sidx[threadIdx.x];
+    const int64_t r = lane_n + src;
+    const int64_t o = o0 + threadIdx.x;
+    bch[o] = (child != nullptr)
+                 ? static_cast<uint8_t>(child[r] != 0)
+                 : static_cast<uint8_t>(n_parents >= 0 && src >= n_parents);
+    uint32_t h, h2;
+    row_hash(state, fok, fcr, r, W, 0, kHashSeed1, kHashSeed2, h, h2);
+    bcls[o] = h;
+    dead[o] = 0;
+    atomicAdd(&ccnt[static_cast<int64_t>(l) * S + (h >> cb_shift)], 1);
+  }
+}
+
+// Buffer row j into its class super-bucket's list (atomic cursor; the
+// order inside a list is arbitrary: the prune is an existence test).
+__global__ void k_class_scatter(int Cb, int S, int cb_shift,
+                                const int32_t* __restrict__ nk0,
+                                const uint32_t* __restrict__ bcls,
+                                int32_t* __restrict__ cursor,
+                                int32_t* __restrict__ list) {
   const int l = blockIdx.y;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= min(nk0[l], Cb)) return;
+  const int64_t lane0 = static_cast<int64_t>(l) * Cb;
+  const int slot = atomicAdd(
+      &cursor[static_cast<int64_t>(l) * S + (bcls[lane0 + j] >> cb_shift)], 1);
+  list[lane0 + slot] = j;
+}
+
+// The domination prune over class lists, for G = 2 * GW groups in
+// {4, 8, 16, 32, 64} and at most kPruneMaxW fok words.  The lane's lists
+// lie end to end in list order; block (jt, part) takes list positions
+// [jt * kPruneRows, +kPruneRows) as its j rows, one per thread.  Those
+// rows' lists form one span of list positions; the block takes slice
+// `part` of kPruneSplit of it and stages it in tiles of kPruneRows i
+// rows through shared memory (cp.async, double-buffered), and each
+// thread tests its j against the staged rows of its own list.  A block
+// inside one long list (a big class) so compares kPruneRows j rows with
+// a quarter of the class from shared memory, with every thread reading
+// the same i row (a broadcast); a block over short lists stages little
+// more than its own rows.  j dies when an i != j of its class (state and
+// fok equal: a super-bucket may hold several classes) has
+//   le_ij = pos_j and fcr_i <= sat_j on every group, sat = min(fcr, m-1),
+// and either i < j or not le_ji.  pos_j: m >= 1 and no negative count
+// (every sat_j >= 0).  The compares are 16-bit SIMD, two groups per
+// word: fcr_i <= sat_j on both lanes iff max(fcr_i, sat_j) == sat_j,
+// OR-ed over the words; le_ji = pos_i and fcr_j <= m-1 and fcr_j <=
+// fcr_i (the same max test).  Signed lanes, so any int16 count is exact.
+// A kill is written as dead[j] = 1 by whichever block finds one (dead
+// was zeroed by k_compact1), so the slices need no merge.
+template <int GW>
+__global__ void __launch_bounds__(kPruneRows)
+    k_prune_tiles(int Cb, int W, int S, int cb_shift, int m,
+                  const int32_t* __restrict__ nk0,
+                  const int32_t* __restrict__ bst,
+                  const uint32_t* __restrict__ bfo,
+                  const int16_t* __restrict__ bfc,
+                  const uint32_t* __restrict__ bcls,
+                  const int32_t* __restrict__ coff,
+                  const int32_t* __restrict__ ccnt,
+                  const int32_t* __restrict__ list,
+                  uint8_t* __restrict__ dead) {
+  __shared__ __align__(16) uint32_t s_f[2][kPruneRows][GW];
+  __shared__ uint32_t s_fo[2][kPruneRows][kPruneMaxW];
+  __shared__ int32_t s_st[2][kPruneRows];
+  __shared__ int32_t s_idx[2][kPruneRows];
+  __shared__ int s_span[2];
+  const int l = blockIdx.y;
+  const int jt = blockIdx.x / kPruneSplit;
+  const int part = blockIdx.x - jt * kPruneSplit;
   const int nv = min(nk0[l], Cb);
-  if (j >= nv) return;
+  const int p0 = jt * kPruneRows;
+  if (p0 >= nv) return;
+  const int64_t lane0 = static_cast<int64_t>(l) * Cb;
+  const int p = p0 + threadIdx.x;
+  const bool active = p < nv;
+  int j = -1, a = 0, b = 0;
+  if (active) {
+    j = list[lane0 + p];
+    const int64_t sbi = static_cast<int64_t>(l) * S + (bcls[lane0 + j] >> cb_shift);
+    a = coff[sbi];
+    b = a + ccnt[sbi];
+  }
+  if (p == p0) s_span[0] = a;
+  if (p == min(p0 + kPruneRows, nv) - 1) s_span[1] = b;
+  __syncthreads();
+  const int per = (s_span[1] - s_span[0] + kPruneSplit - 1) / kPruneSplit;
+  const int lo = s_span[0] + part * per;
+  const int hi = min(s_span[1], lo + per);
+  if (lo >= hi) return;
+
+  // j's row in registers: its counts, saturated counts and class.
+  const uint32_t mm = static_cast<uint32_t>(static_cast<uint16_t>(m - 1)) * 0x10001u;
+  uint32_t fj[GW], sj[GW], foj[kPruneMaxW];
+  int32_t stj = 0;
+  bool capj = true;
+  uint32_t sign = 0u;
+#pragma unroll
+  for (int w = 0; w < GW; ++w) {
+    fj[w] = 0u;
+    sj[w] = 0u;
+  }
+#pragma unroll
+  for (int w = 0; w < kPruneMaxW; ++w) foj[w] = 0u;
+  if (active) {
+    const int64_t bj = lane0 + j;
+    const uint32_t* fw = reinterpret_cast<const uint32_t*>(bfc) + bj * GW;
+#pragma unroll
+    for (int w = 0; w < GW; ++w) {
+      fj[w] = fw[w];
+      sj[w] = vmin_s16x2(fj[w], mm);
+      capj = capj && vmax_s16x2(fj[w], mm) == mm;
+      sign |= fj[w];
+    }
+    stj = bst[bj];
+#pragma unroll
+    for (int w = 0; w < kPruneMaxW; ++w) {
+      if (w < W) foj[w] = bfo[bj * W + w];
+    }
+  }
+  const bool posj = m >= 1 && (sign & 0x80008000u) == 0u;
+  bool killed = false;
+  bool done = !active || !posj;
+
+  auto stage = [&](int t, int buf) {
+    const int q = lo + t * kPruneRows + threadIdx.x;
+    if (q < hi) {
+      const int i = list[lane0 + q];
+      const int64_t bi = lane0 + i;
+      s_idx[buf][threadIdx.x] = i;
+      cp_async<4>(&s_st[buf][threadIdx.x], bst + bi);
+      for (int w = 0; w < W; ++w) {
+        cp_async<4>(&s_fo[buf][threadIdx.x][w], bfo + bi * W + w);
+      }
+      const uint32_t* fw = reinterpret_cast<const uint32_t*>(bfc) + bi * GW;
+      if constexpr (GW % 4 == 0) {
+#pragma unroll
+        for (int w = 0; w < GW; w += 4) cp_async<16>(&s_f[buf][threadIdx.x][w], fw + w);
+      } else {
+#pragma unroll
+        for (int w = 0; w < GW; w += 2) cp_async<8>(&s_f[buf][threadIdx.x][w], fw + w);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int ntiles = (hi - lo + kPruneRows - 1) / kPruneRows;
+  stage(0, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < ntiles) {
+      stage(t + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (!done) {
+      const int q0 = lo + t * kPruneRows;
+      const int i0 = max(a - q0, 0);
+      const int i1 = min(min(b, hi) - q0, kPruneRows);
+      for (int ii = i0; ii < i1; ++ii) {
+        const int i = s_idx[buf][ii];
+        if (i == j || s_st[buf][ii] != stj) continue;
+        bool same = true;
+#pragma unroll
+        for (int w = 0; w < kPruneMaxW; ++w) {
+          same = same && (w >= W || s_fo[buf][ii][w] == foj[w]);
+        }
+        if (!same) continue;
+        const uint32_t* fi = s_f[buf][ii];
+        uint32_t x = 0u;
+#pragma unroll
+        for (int w = 0; w < GW; ++w) x |= vmax_s16x2(fi[w], sj[w]) ^ sj[w];
+        if (x != 0u) continue;  // not le_ij
+        if (i < j) {
+          killed = true;
+          break;
+        }
+        // i later: j dies unless le_ji (tested only here, rarely)
+        uint32_t y = 0u, si = 0u;
+#pragma unroll
+        for (int w = 0; w < GW; ++w) {
+          y |= vmax_s16x2(fj[w], fi[w]) ^ fi[w];
+          si |= fi[w];
+        }
+        if (!(capj && y == 0u && (si & 0x80008000u) == 0u)) {
+          killed = true;
+          break;
+        }
+      }
+      done = killed;
+    }
+    if (!__syncthreads_or(!done)) break;
+  }
+  cp_async_wait<0>();
+  if (killed) dead[lane0 + j] = 1;
+}
+
+// The prune for the shapes k_prune_tiles does not take (an odd G, G > 64
+// or not a power of two, more than kPruneMaxW fok words): one thread per
+// buffer row j scans its class list with scalar compares, the same test.
+__global__ void k_prune_list(int Cb, int W, int G, int m, int S, int cb_shift,
+                             const int32_t* __restrict__ nk0,
+                             const int32_t* __restrict__ bst,
+                             const uint32_t* __restrict__ bfo,
+                             const int16_t* __restrict__ bfc,
+                             const uint32_t* __restrict__ bcls,
+                             const int32_t* __restrict__ coff,
+                             const int32_t* __restrict__ ccnt,
+                             const int32_t* __restrict__ list,
+                             uint8_t* __restrict__ dead) {
+  const int l = blockIdx.y;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= min(nk0[l], Cb)) return;
   const int64_t lane0 = static_cast<int64_t>(l) * Cb;
   const int64_t bj = lane0 + j;
-  const int32_t sj = bst[bj];
+  const int64_t sbi = static_cast<int64_t>(l) * S + (bcls[bj] >> cb_shift);
+  const int32_t* lst = list + lane0 + coff[sbi];
+  const int k = ccnt[sbi];
+  const int32_t stj = bst[bj];
   bool killed = false;
-  for (int i = 0; i < nv && !killed; ++i) {
+  for (int t = 0; t < k && !killed; ++t) {
+    const int i = lst[t];
     if (i == j) continue;
     const int64_t bi = lane0 + i;
-    if (bst[bi] != sj) continue;
+    if (bst[bi] != stj) continue;
     bool same = true;
     for (int w = 0; w < W && same; ++w) same = bfo[bi * W + w] == bfo[bj * W + w];
     if (!same) continue;
@@ -329,80 +691,92 @@ __global__ void k_prune(int Cb, int W, int G, int m,
       const int fi = bfc[bi * G + g];
       const int fj = bfc[bj * G + g];
       const int si = min(fi, m - 1);
-      const int sj2 = min(fj, m - 1);
-      if (!(sj2 >= 0 && fi <= sj2)) le_ij = false;
+      const int sj = min(fj, m - 1);
+      if (!(sj >= 0 && fi <= sj)) le_ij = false;
       if (!(si >= 0 && fj <= si)) le_ji = false;
     }
     killed = le_ij && (!le_ji || i < j);
   }
-  dead[bj] = static_cast<uint8_t>(killed);
+  if (killed) dead[bj] = 1;
 }
 
-__global__ void k_compact2(int Cb, int C, int W, int G,
-                           const int32_t* __restrict__ nk0,
-                           const int32_t* __restrict__ bst,
-                           const uint32_t* __restrict__ bfo,
-                           const int16_t* __restrict__ bfc,
-                           const uint8_t* __restrict__ bch,
-                           const uint8_t* __restrict__ dead,
-                           int32_t* __restrict__ kst,
-                           uint32_t* __restrict__ kfo,
-                           int16_t* __restrict__ kfc,
-                           uint8_t* __restrict__ alv,
-                           uint8_t* __restrict__ chd,
-                           int32_t* __restrict__ flags,
-                           uint32_t* __restrict__ fp) {
-  __shared__ uint32_t acc[3];
-  const int l = blockIdx.x;
+// The second compaction, over chunks of kChunkRows buffer rows.  Each
+// block counts the lane's survivors before its chunk and in all (the
+// lane's 2C dead flags, read by the whole block: no count or scan
+// launch), scans its chunk's survivors to their output rows and copies
+// them as whole words, hashes them into the fingerprint (per-warp
+// partial sums added with unsigned atomics: mod 2^32, in any order), and
+// zeroes the output rows of its span that no survivor fills.
+__global__ void __launch_bounds__(kChunkRows)
+    k_compact2(int Cb, int C, int W, int G, const int32_t* __restrict__ nk0,
+               const int32_t* __restrict__ bst,
+               const uint32_t* __restrict__ bfo,
+               const int16_t* __restrict__ bfc,
+               const uint8_t* __restrict__ bch,
+               const uint8_t* __restrict__ dead,
+               int32_t* __restrict__ kst, uint32_t* __restrict__ kfo,
+               int16_t* __restrict__ kfc, uint8_t* __restrict__ alv,
+               uint8_t* __restrict__ chd, uint8_t* __restrict__ ovf,
+               uint64_t* __restrict__ fp) {
+  __shared__ int32_t sidx[kChunkRows];
+  const int l = blockIdx.y;
+  const int r0 = blockIdx.x * kChunkRows;
   const int nv = min(nk0[l], Cb);
   const int64_t lane_b = static_cast<int64_t>(l) * Cb;
   const int64_t lane_c = static_cast<int64_t>(l) * C;
-  if (threadIdx.x < 3) acc[threadIdx.x] = 0u;
+  int before = 0, all = 0;
+  for (int r = threadIdx.x; r < nv; r += blockDim.x) {
+    const int a = dead[lane_b + r] ? 0 : 1;
+    all += a;
+    if (r < r0) before += a;
+  }
+  block_exclusive_scan(before, &before);
+  block_exclusive_scan(all, &all);
+  const int r = r0 + threadIdx.x;
+  const int a = (r < nv && !dead[lane_b + r]) ? 1 : 0;
+  int tot;
+  const int ex = block_exclusive_scan(a, &tot);
+  if (a) sidx[ex] = r;
   __syncthreads();
+  const int kc = max(0, min(tot, C - before));
+  const int64_t o0 = lane_c + before;
+  copy_rows(bst + lane_b, kst + o0, 4, sidx, kc);
+  copy_rows(bfo + lane_b * W, kfo + o0 * W, 4 * W, sidx, kc);
+  copy_rows(bfc + lane_b * G, kfc + o0 * G, 2 * G, sidx, kc);
   uint32_t s1 = 0u, s2 = 0u, sc = 0u;
-  int carry = 0;
-  for (int r0 = 0; r0 < Cb; r0 += blockDim.x) {
-    const int r = r0 + threadIdx.x;
-    const int64_t br = lane_b + r;
-    const int a = (r < nv && !dead[br]) ? 1 : 0;
-    int tot;
-    const int ex = block_exclusive_scan(a, &tot);
-    const int rank = carry + ex;
-    if (a && rank < C) {
-      const int64_t o = lane_c + rank;
-      kst[o] = bst[br];
-      for (int w = 0; w < W; ++w) kfo[o * W + w] = bfo[br * W + w];
-      for (int g = 0; g < G; ++g) kfc[o * G + g] = bfc[br * G + g];
-      alv[o] = 1;
-      chd[o] = bch[br];
-      uint32_t f1, f2;
-      row_hash(bst, bfo, bfc, br, W, G, kFpSeed1, kFpSeed2, f1, f2);
-      s1 += f1;
-      s2 += f2;
-      sc += 1u;
-    }
-    carry += tot;
+  if (static_cast<int>(threadIdx.x) < kc) {
+    const int64_t br = lane_b + sidx[threadIdx.x];
+    alv[o0 + threadIdx.x] = 1;
+    chd[o0 + threadIdx.x] = bch[br];
+    row_hash(bst, bfo, bfc, br, W, G, kFpSeed1, kFpSeed2, s1, s2);
+    sc = 1u;
   }
-  const int nk = carry;
-  const int nkc = min(nk, C);
-  for (int r = nkc + threadIdx.x; r < C; r += blockDim.x) {
-    const int64_t o = lane_c + r;
-    kst[o] = 0;
-    for (int w = 0; w < W; ++w) kfo[o * W + w] = 0u;
-    for (int g = 0; g < G; ++g) kfc[o * G + g] = 0;
-    alv[o] = 0;
-    chd[o] = 0;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    s1 += __shfl_down_sync(0xffffffffu, s1, d);
+    s2 += __shfl_down_sync(0xffffffffu, s2, d);
+    sc += __shfl_down_sync(0xffffffffu, sc, d);
   }
-  atomicAdd(&acc[0], s1);
-  atomicAdd(&acc[1], s2);
-  atomicAdd(&acc[2], sc);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    fp[static_cast<int64_t>(l) * 3 + 0] = acc[0];
-    fp[static_cast<int64_t>(l) * 3 + 1] = acc[1];
-    fp[static_cast<int64_t>(l) * 3 + 2] = acc[2];
-    flags[static_cast<int64_t>(l) * 2 + 0] = (nk0[l] > Cb || nk > C) ? 1 : 0;
-    flags[static_cast<int64_t>(l) * 2 + 1] = nk;
+  if ((threadIdx.x & 31) == 0 && sc != 0u) {
+    // the low 32-bit half of each little-endian 64-bit word: the sums
+    // wrap mod 2^32 and the high halves stay 0
+    uint32_t* f32 = reinterpret_cast<uint32_t*>(fp + static_cast<int64_t>(l) * 3);
+    atomicAdd(f32 + 0, s1);
+    atomicAdd(f32 + 2, s2);
+    atomicAdd(f32 + 4, sc);
+  }
+  const int z0 = max(min(all, C), r0);
+  const int z1 = min(C, r0 + kChunkRows);
+  if (z0 < z1) {
+    const int64_t oz = lane_c + z0;
+    zero_rows(kst + oz, 4, z1 - z0);
+    zero_rows(kfo + oz * W, 4 * W, z1 - z0);
+    zero_rows(kfc + oz * G, 2 * G, z1 - z0);
+    zero_rows(alv + oz, 1, z1 - z0);
+    zero_rows(chd + oz, 1, z1 - z0);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    ovf[l] = (nk0[l] > Cb || all > C) ? 1 : 0;
   }
 }
 
@@ -443,7 +817,7 @@ int wk_keep_mask(int L, int n, int W, int G, int window, int sbits,
       static_cast<uint32_t*>(h2), static_cast<int32_t*>(cnt));
   k_exclusive_scan<<<L, kScanThreads, 0, s>>>(
       S, static_cast<const int32_t*>(cnt), static_cast<int32_t*>(off),
-      static_cast<int32_t*>(cursor), nullptr);
+      static_cast<int32_t*>(cursor));
   k_scatter<<<rows, kRowThreads, 0, s>>>(
       n, S, sb_shift, static_cast<const uint32_t*>(h1),
       static_cast<const uint8_t*>(alive), static_cast<int32_t*>(cursor),
@@ -465,50 +839,81 @@ int wk_keep_mask(int L, int n, int W, int G, int window, int sbits,
 }
 
 // The fused tail after wk_keep_mask (with chunk_cnt): compaction into
-// the Cb = 2C buffer, the domination prune, compaction to C rows and the
-// fingerprint.  child [L*n] (0/1) is the explicit child column, or null
-// for the positional one from n_parents (-1: no children); the two
-// exclude each other.  Scratch: chunk_off [L*nchunks], nk0 [L], bst
-// [L*Cb], bfo [L*Cb*W], bfc [L*Cb*G], bch, dead [L*Cb].  Outputs: kst
-// [L*C], kfo [L*C*W], kfc [L*C*G], alv, chd [L*C], flags [L*2]
-// (overflowed, survivor count), fp [L*3].
+// the Cb = 2C buffer with the class partition, the domination prune,
+// compaction to C rows and the fingerprint.  child [L*n] (0/1) is the
+// explicit child column, or null for the positional one from n_parents
+// (-1: no children); the two exclude each other.  S = 2^cbits class
+// super-buckets per lane.  Scratch: nk0 [L], bst [L*Cb], bfo [L*Cb*W],
+// bfc [L*Cb*G], bch and dead [L*Cb] bytes, bcls and clist [L*Cb], ccnt,
+// coff and cursor [L*S].  Outputs: kst [L*C], kfo [L*C*W], kfc [L*C*G],
+// alv, chd [L*C] and ovf [L] (0/1 bytes), fp [L*3] (64-bit words holding
+// the uint32 sums).
 int wk_fused_tail(int L, int n, int C, int W, int G, int m, int n_parents,
-                  const void* state, const void* fok, const void* fcr,
-                  const void* child,
-                  const void* keep, const void* chunk_cnt, void* chunk_off,
-                  void* nk0, void* bst, void* bfo, void* bfc, void* bch,
-                  void* dead, void* kst, void* kfo, void* kfc, void* alv,
-                  void* chd, void* flags, void* fp, void* stream) {
+                  int cbits, const void* state, const void* fok,
+                  const void* fcr, const void* child, const void* keep,
+                  const void* chunk_cnt, void* nk0, void* bst, void* bfo,
+                  void* bfc, void* bch, void* dead, void* bcls, void* clist,
+                  void* ccnt, void* coff, void* cursor, void* kst, void* kfo,
+                  void* kfc, void* alv, void* chd, void* ovf, void* fp,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (child != nullptr && n_parents >= 0) {
+  if ((child != nullptr && n_parents >= 0) || cbits < 1 || cbits > 24) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  using I = int32_t;
+  using U = uint32_t;
+  using B = uint8_t;
   const int Cb = 2 * C;
+  const int S = 1 << cbits;
+  const int cb_shift = 32 - cbits;
   const int nchunks = static_cast<int>(blocks_for(n, kChunkRows));
+  const cudaError_t e = cudaMemsetAsync(ccnt, 0, sizeof(I) * static_cast<size_t>(L) * S, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  k_compact1<<<dim3(nchunks, L), kChunkRows, 0, s>>>(
+      n, nchunks, Cb, W, G, n_parents, S, cb_shift, static_cast<const I*>(state),
+      static_cast<const U*>(fok), static_cast<const int16_t*>(fcr),
+      static_cast<const B*>(child), static_cast<const B*>(keep),
+      static_cast<const I*>(chunk_cnt), static_cast<I*>(nk0), static_cast<I*>(bst),
+      static_cast<U*>(bfo), static_cast<int16_t*>(bfc), static_cast<B*>(bch),
+      static_cast<B*>(dead), static_cast<U*>(bcls), static_cast<I*>(ccnt),
+      static_cast<uint64_t*>(fp));
   k_exclusive_scan<<<L, kScanThreads, 0, s>>>(
-      nchunks, static_cast<const int32_t*>(chunk_cnt),
-      static_cast<int32_t*>(chunk_off), nullptr, static_cast<int32_t*>(nk0));
-  const dim3 chunks(nchunks, L);
-  k_compact1<<<chunks, kChunkRows, 0, s>>>(
-      n, Cb, W, G, n_parents, static_cast<const int32_t*>(state),
-      static_cast<const uint32_t*>(fok), static_cast<const int16_t*>(fcr),
-      static_cast<const uint8_t*>(child), static_cast<const uint8_t*>(keep),
-      static_cast<const int32_t*>(chunk_off), static_cast<int32_t*>(bst),
-      static_cast<uint32_t*>(bfo), static_cast<int16_t*>(bfc),
-      static_cast<uint8_t*>(bch));
-  const dim3 buf(blocks_for(Cb, kRowThreads), L);
-  k_prune<<<buf, kRowThreads, 0, s>>>(
-      Cb, W, G, m, static_cast<const int32_t*>(nk0),
-      static_cast<const int32_t*>(bst), static_cast<const uint32_t*>(bfo),
-      static_cast<const int16_t*>(bfc), static_cast<uint8_t*>(dead));
-  k_compact2<<<L, kScanThreads, 0, s>>>(
-      Cb, C, W, G, static_cast<const int32_t*>(nk0),
-      static_cast<const int32_t*>(bst), static_cast<const uint32_t*>(bfo),
-      static_cast<const int16_t*>(bfc), static_cast<const uint8_t*>(bch),
-      static_cast<const uint8_t*>(dead), static_cast<int32_t*>(kst),
-      static_cast<uint32_t*>(kfo), static_cast<int16_t*>(kfc),
-      static_cast<uint8_t*>(alv), static_cast<uint8_t*>(chd),
-      static_cast<int32_t*>(flags), static_cast<uint32_t*>(fp));
+      S, static_cast<const I*>(ccnt), static_cast<I*>(coff),
+      static_cast<I*>(cursor));
+  const dim3 rows(blocks_for(Cb, kRowThreads), L);
+  k_class_scatter<<<rows, kRowThreads, 0, s>>>(
+      Cb, S, cb_shift, static_cast<const I*>(nk0), static_cast<const U*>(bcls),
+      static_cast<I*>(cursor), static_cast<I*>(clist));
+  const dim3 tiles(blocks_for(Cb, kPruneRows) * kPruneSplit, L);
+#define WK_PRUNE_TILES(GW)                                                      \
+  k_prune_tiles<GW><<<tiles, kPruneRows, 0, s>>>(                               \
+      Cb, W, S, cb_shift, m, static_cast<const I*>(nk0),                        \
+      static_cast<const I*>(bst), static_cast<const U*>(bfo),                   \
+      static_cast<const int16_t*>(bfc), static_cast<const U*>(bcls),            \
+      static_cast<const I*>(coff), static_cast<const I*>(ccnt),                 \
+      static_cast<const I*>(clist), static_cast<B*>(dead))
+  const int gw = (W <= kPruneMaxW && G % 2 == 0) ? G / 2 : 0;
+  switch (gw) {
+    case 2: WK_PRUNE_TILES(2); break;
+    case 4: WK_PRUNE_TILES(4); break;
+    case 8: WK_PRUNE_TILES(8); break;
+    case 16: WK_PRUNE_TILES(16); break;
+    case 32: WK_PRUNE_TILES(32); break;
+    default:
+      k_prune_list<<<rows, kRowThreads, 0, s>>>(
+          Cb, W, G, m, S, cb_shift, static_cast<const I*>(nk0),
+          static_cast<const I*>(bst), static_cast<const U*>(bfo),
+          static_cast<const int16_t*>(bfc), static_cast<const U*>(bcls),
+          static_cast<const I*>(coff), static_cast<const I*>(ccnt),
+          static_cast<const I*>(clist), static_cast<B*>(dead));
+  }
+#undef WK_PRUNE_TILES
+  k_compact2<<<dim3(blocks_for(Cb, kChunkRows), L), kChunkRows, 0, s>>>(
+      Cb, C, W, G, static_cast<const I*>(nk0), static_cast<const I*>(bst),
+      static_cast<const U*>(bfo), static_cast<const int16_t*>(bfc),
+      static_cast<const B*>(bch), static_cast<const B*>(dead), static_cast<I*>(kst),
+      static_cast<U*>(kfo), static_cast<int16_t*>(kfc), static_cast<B*>(alv),
+      static_cast<B*>(chd), static_cast<B*>(ovf), static_cast<uint64_t*>(fp));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -89,11 +89,17 @@ _SIGNATURES = {
     "wk_chunk_rows": (_I, []),
     "wk_error_string": (ctypes.c_char_p, [_I]),
     "wk_keep_mask": (_I, [_I] * 7 + [_P] * 15),
-    "wk_fused_tail": (_I, [_I] * 7 + [_P] * 21),
+    "wk_fused_tail": (_I, [_I] * 8 + [_P] * 25),
 }
+#: The most shards one exchange takes: the kernel gets its D send and D
+#: receive bases by value, in one fixed-size parameter (``kMaxShards``
+#: in ``csrc/mesh_exchange.cu``).
+MESH_MAX_SHARDS = 64
+_Bases = _P * MESH_MAX_SHARDS
 _EXCHANGE_SIGNATURES = {
     "wk_error_string": (ctypes.c_char_p, [_I]),
-    "wk_mesh_exchange": (_I, [_I, ctypes.c_int64, _P, _P, _P]),
+    "wk_mesh_exchange": (_I, [_I, ctypes.c_int64, ctypes.POINTER(_P),
+                              ctypes.POINTER(_P), _P]),
 }
 
 
@@ -171,28 +177,26 @@ def _launch_keep(state, fok, fcr, alive, window: int, with_chunks: bool):
     S = 1 << sbits
     dev = state.device
     i32 = dict(dtype=torch.int32, device=dev)
-    h1 = torch.empty(L, n, **i32)
-    h2 = torch.empty(L, n, **i32)
-    cnt = torch.zeros(L, S, **i32)
-    off = torch.empty(L, S, **i32)
-    cursor = torch.empty(L, S, **i32)
-    lst = torch.empty(L, n, **i32)
-    pre = torch.empty(L, n, **i32)
+    # h1, h2, off, cursor, list, pre; cnt and ovf start at zero
+    buf, (h1, h2, off, cursor, lst, pre) = _scratch(
+        dev, [L * n, L * n, L * S, L * S, L * n, L * n])
+    zeroed = torch.zeros(L * (S + 1), **i32)
     keep = torch.empty(L, n, dtype=torch.bool, device=dev)
-    ovf = torch.zeros(L, **i32)
     chunk_rows = lib.wk_chunk_rows()
     chunk_cnt = (torch.empty(L, -(-n // chunk_rows), **i32)
                  if with_chunks else None)
     rc = lib.wk_keep_mask(
         L, n, W, G, int(window), sbits, bbits,
-        *(t.data_ptr() for t in (state, fok, fcr, alive, h1, h2, cnt, off,
-                                 cursor, lst, pre, keep, ovf)),
+        state.data_ptr(), fok.data_ptr(), fcr.data_ptr(), alive.data_ptr(),
+        h1, h2, zeroed.data_ptr(), off, cursor, lst, pre, keep.data_ptr(),
+        zeroed.data_ptr() + 4 * L * S,
         None if chunk_cnt is None else chunk_cnt.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _build.stream(state),
     )
     _build.check(lib, rc, "wk_keep_mask")
+    del buf
     KEEP_LAUNCHES += 1
-    return keep, ovf, chunk_cnt
+    return keep, zeroed[L * S:], chunk_cnt
 
 
 def keep_mask(state, fok, fcr, alive, window: int = 4):
@@ -255,6 +259,37 @@ def _launch_fused(state, fok, fcr, alive, capacity, window, n_parents, m,
                   child=None):
     global FUSED_LAUNCHES
     keep, _ovf, chunk_cnt = _launch_keep(state, fok, fcr, alive, window, True)
+    out = _launch_tail(state, fok, fcr, keep, chunk_cnt, capacity,
+                       n_parents, m, child)
+    FUSED_LAUNCHES += 1
+    return out
+
+
+def _class_bits(Cb: int) -> int:
+    """Class super-bucket bits of the prune's partition of a Cb-row
+    buffer: about 8 rows per super-bucket, so a list holds one big class
+    or a few small ones."""
+    return max(1, (Cb - 1).bit_length() - 3)
+
+
+def _scratch(dev, sizes):
+    """One int32 allocation cut into 256-byte-aligned regions of the
+    given int32 counts: (the tensor, which must outlive the launch, and
+    each region's address)."""
+    offs, total = [], 0
+    for s in sizes:
+        offs.append(total)
+        total += -(-s // 64) * 64
+    buf = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+    return buf, [buf.data_ptr() + 4 * o for o in offs]
+
+
+def _launch_tail(state, fok, fcr, keep, chunk_cnt, capacity, n_parents, m,
+                 child=None):
+    """Launch ``wk_fused_tail`` on a keep mask and its per-chunk kept
+    counts (``_launch_keep(..., with_chunks=True)``); returns the fused
+    update's outputs.  It reads its inputs only, so it can be timed on
+    its own."""
     (L, n), W, G = state.shape, fok.shape[2], fcr.shape[2]
     if child is not None and (child.device != state.device
                               or not child.is_contiguous()):
@@ -263,36 +298,35 @@ def _launch_fused(state, fok, fcr, alive, capacity, window, n_parents, m,
     lib = _lib()
     C = int(capacity)
     Cb = 2 * C
+    cbits = _class_bits(Cb)
+    S = 1 << cbits
     dev = state.device
+    # nk0; bst, bfo, bfc; bch, dead (bytes); bcls, clist; ccnt, coff, cursor
+    rows = L * Cb
+    buf, scratch = _scratch(dev, [L, rows, rows * W, -(-rows * G // 2),
+                                  -(-rows // 4), -(-rows // 4), rows, rows,
+                                  L * S, L * S, L * S])
     i32 = dict(dtype=torch.int32, device=dev)
     u8 = dict(dtype=torch.bool, device=dev)
-    chunk_off = torch.empty_like(chunk_cnt)
-    nk0 = torch.empty(L, **i32)
-    bst = torch.empty(L, Cb, **i32)
-    bfo = torch.empty(L, Cb, W, **i32)
-    bfc = torch.empty(L, Cb, G, dtype=torch.int16, device=dev)
-    bch = torch.empty(L, Cb, **u8)
-    dead = torch.empty(L, Cb, **u8)
     kst = torch.empty(L, C, **i32)
     kfo = torch.empty(L, C, W, **i32)
     kfc = torch.empty(L, C, G, dtype=torch.int16, device=dev)
     alv = torch.empty(L, C, **u8)
     chd = torch.empty(L, C, **u8)
-    flags = torch.empty(L, 2, **i32)
-    fp = torch.empty(L, 3, **i32)
+    ovf = torch.empty(L, **u8)
+    fp = torch.empty(L, 3, dtype=torch.int64, device=dev)
     rc = lib.wk_fused_tail(
         L, n, C, W, G, int(m), -1 if n_parents is None else int(n_parents),
-        *(t.data_ptr() for t in (state, fok, fcr)),
+        cbits, state.data_ptr(), fok.data_ptr(), fcr.data_ptr(),
         None if child is None else child.data_ptr(),
-        *(t.data_ptr() for t in (keep, chunk_cnt, chunk_off,
-                                 nk0, bst, bfo, bfc, bch, dead, kst, kfo,
-                                 kfc, alv, chd, flags, fp)),
-        torch.cuda.current_stream(dev).cuda_stream,
+        keep.data_ptr(), chunk_cnt.data_ptr(), *scratch,
+        *(t.data_ptr() for t in (kst, kfo, kfc, alv, chd, ovf, fp)),
+        _build.stream(state),
     )
     _build.check(lib, rc, "wk_fused_tail")
-    FUSED_LAUNCHES += 1
-    return (kst, kfo, kfc, alv, flags[:, 0] != 0,
-            hashing.u32(fp), chd)
+    # Freed once enqueued: the caching allocator reuses it in stream order.
+    del buf
+    return kst, kfo, kfc, alv, ovf, fp, chd
 
 
 # ---------------------------------------------------------------------------
@@ -483,33 +517,43 @@ def mesh_exchange(mesh, send):
                          f"got {tuple(send.shape)}")
     if send.dtype != torch.int32:
         raise TypeError(f"send must be int32, got {send.dtype}")
-    if send.device.type == "cpu":
+    if send.is_cpu:
         return mesh_exchange_ref(send)
     return _launch_exchange(send)
 
 
+def _exchange_bases(send, recv):
+    """The exchange kernel's pointer tables: shard m's send and receive
+    base addresses, as two host arrays of ``MESH_MAX_SHARDS`` pointers
+    that the kernel takes by value at launch (no copy to the card).
+    Raises ValueError for more shards than the kernel's parameter holds,
+    or for slot matrices that the 16-byte path cannot address."""
+    D, _, rcap, nc = send.shape
+    if D > MESH_MAX_SHARDS:
+        raise ValueError(f"the exchange kernel takes at most "
+                         f"{MESH_MAX_SHARDS} shards, got {D}")
+    step = D * rcap * nc * send.element_size()
+    s0, r0 = send.data_ptr(), recv.data_ptr()
+    if (rcap * nc) % 4 == 0 and (s0 % 16 or r0 % 16):
+        raise ValueError("shard slot matrices must be 16-byte aligned")
+    sb, rb = _Bases(), _Bases()
+    sb[:D] = [s0 + m * step for m in range(D)]
+    rb[:D] = [r0 + m * step for m in range(D)]
+    return sb, rb
+
+
 def _launch_exchange(send):
     global EXCHANGE_LAUNCHES
-    if send.device.type != "cuda":
+    D, _, rcap, nc = send.shape
+    if not send.is_cuda:
         raise ValueError("send must lie on a CUDA device")
     if not send.is_contiguous():
         raise ValueError("send must be contiguous")
-    D, _, rcap, nc = send.shape
     recv = torch.empty_like(send)
-    words = rcap * nc
-    bases = ([send[m].data_ptr() for m in range(D)]
-             + [recv[m].data_ptr() for m in range(D)])
-    if words % 4 == 0 and any(p % 16 for p in bases):
-        raise ValueError("shard slot matrices must be 16-byte aligned")
-    # The pointer tables reach the card without a host sync: a pinned
-    # staging copy, ordered on the launch's stream.
-    table = torch.tensor(bases, dtype=torch.int64).pin_memory().to(
-        send.device, non_blocking=True)
+    send_b, recv_b = _exchange_bases(send, recv)
     lib = _build.load("mesh_exchange", _EXCHANGE_SIGNATURES)
-    rc = lib.wk_mesh_exchange(
-        D, words, table.data_ptr(), table.data_ptr() + 8 * D,
-        torch.cuda.current_stream(send.device).cuda_stream,
-    )
+    rc = lib.wk_mesh_exchange(D, rcap * nc, send_b, recv_b,
+                              _build.stream(send))
     _build.check(lib, rc, "wk_mesh_exchange")
     EXCHANGE_LAUNCHES += 1
     return recv

@@ -129,6 +129,30 @@ def test_exchange_wrapper_refuses_what_it_cannot_launch():
     assert twk.EXCHANGE_LAUNCHES == before
 
 
+def test_exchange_bases_by_value():
+    """The kernel's pointer tables: shard m's send and receive bases in
+    two fixed-size host arrays (passed by value at launch, no copy to
+    the card), zero past D; more shards than the kernel's parameter
+    holds are refused."""
+    D = 4
+    send = torch.zeros(D, D, 8, 5, dtype=torch.int32)
+    recv = torch.empty_like(send)
+    sb, rb = twk._exchange_bases(send, recv)
+    assert len(sb) == len(rb) == twk.MESH_MAX_SHARDS == 64
+    assert list(sb[:D]) == [send[m].data_ptr() for m in range(D)]
+    assert list(rb[:D]) == [recv[m].data_ptr() for m in range(D)]
+    assert all(p is None for p in list(sb[D:]) + list(rb[D:]))
+    big = torch.zeros(65, 65, 1, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 64 shards"):
+        twk._exchange_bases(big, big)
+    before = twk.EXCHANGE_LAUNCHES
+    mesh = Mesh((torch.device("meta"),) * 65)
+    with pytest.raises(ValueError):
+        twk.mesh_exchange(mesh, torch.zeros(65, 65, 1, 1, dtype=torch.int32,
+                                            device="meta"))
+    assert twk.EXCHANGE_LAUNCHES == before
+
+
 # ---------------------------------------------------------------------------
 # The fused update's explicit child column
 # ---------------------------------------------------------------------------

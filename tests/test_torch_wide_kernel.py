@@ -189,6 +189,27 @@ def _edge_tables():
                     rng.integers(0, 2, (n, 1)).astype(np.uint32),
                     rng.integers(0, 3, (n, 2)).astype(np.int16),
                     rng.random(n) < 0.7), 64, 4
+    # big (state, fok) classes, whose rows dominate each other often: the
+    # class-partitioned prune's long lists.  Counts are a level plus
+    # sparse +1 noise, up to m - 1 and past it; then saturating far past m
+    yield "class-heavy", _class_heavy(1), 64, 4
+    yield "class-heavy-saturate", _class_heavy(5), 64, 4
+
+
+def _class_heavy(scale, neg=0.0):
+    """1024 rows, 70 % of them in 6 (state, fok) classes; counts a level
+    in [0, 4] plus sparse +1 noise, times ``scale``; a share ``neg`` of
+    the counts set to -1."""
+    rng = np.random.default_rng(21)
+    n, m = 1024, 4
+    big = rng.random(n) < 0.7
+    st = np.where(big, rng.integers(0, 2, n), rng.integers(0, 64, n))
+    fo = np.where(big, rng.integers(0, 3, n), rng.integers(0, 1 << 16, n))
+    lvl = rng.integers(0, m + 1, (n, 1))
+    fc = (lvl + (rng.random((n, 8)) < 0.15)) * scale
+    fc[rng.random((n, 8)) < neg] = -1
+    return (st.astype(np.int32), fo.astype(np.uint32)[:, None],
+            fc.astype(np.int16), rng.random(n) < 0.9)
 
 
 @pytest.mark.parametrize("case", [c[0] for c in _edge_tables()])
@@ -215,6 +236,30 @@ def test_fused_ref_edge_cases(case):
         assert (got[5] == 0).all()
     if tag == "roomy":
         assert not bool(got[4]) and got[3].sum() > 0
+
+
+def test_fused_ref_negative_counts_follow_bucket_path():
+    """Negative counts (never packed by the engines): a row with one
+    cannot be killed, since its saturated count has no one-hot plane.
+    The plain fused update holds that contract with the JAX bucket path
+    (``exact_prune_mxu``) on alive rows, and the keep mask with the
+    Pallas keep kernel (exact).  The JAX Pallas fused kernel is not held
+    here: its byte planes read a negative count back as count + 65536
+    (ROADMAP queue C)."""
+    r = _class_heavy(1, neg=0.02)
+    assert (r[2] < 0).any()
+    tables = (T(r[0])[None], T(r[1].view(np.int32))[None], T(r[2])[None],
+              T(r[3])[None])
+    args = _jax_args(r)
+    cost = jnp.zeros(r[0].shape[0], jnp.int32)
+    got = twk.fused_frontier_update_ref(*tables, 64, 4, 64, 4)
+    ref = hx.frontier_update_fast(*args, cost, 64, n_parents=64,
+                                  max_count=4, dedup_backend="bucket")
+    _assert_same(got, 0, ref, "negative", alive_only=True)
+    assert (got[2][0][got[3][0]] < 0).any()  # rows with a -1 survive
+    keep, ovf = twk.keep_mask_ref(*tables)
+    jk, jo = wk.keep_mask(*args, 4, interpret=True)
+    assert (keep[0].numpy() == np.asarray(jk)).all() and bool(ovf[0]) == bool(jo)
 
 
 def test_fused_routing_gates(monkeypatch):
