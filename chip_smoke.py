@@ -11,10 +11,14 @@ checkout (one nvcc per source, all started together), and then:
   2. holds each kernel against its plain PyTorch version on the card, at
      the bench wide-rung shapes (capacity 2048, P = 8, G = 16 and 32, 8
      lanes), on a class-heavy table of the G = 32 shape (big (state, fok)
-     classes, so that the domination prune kills) and one small shape:
-     the results must be identical (integer and bit outputs, tolerance
-     0); times both with CUDA events, and the fused update's tail
-     (``wk_fused_tail`` after one keep mask) apart from it;
+     classes, so that the domination prune kills), a copy-heavy one
+     (buckets of ~2,600 copies of one row) and one small shape: the
+     results must be identical (integer and bit outputs, tolerance 0);
+     times both with CUDA events, the fused update's tail
+     (``wk_fused_tail`` after one keep mask) apart from it, each
+     kernel's device time, and the keep mask's sort stage beside one
+     stable ``torch.sort`` of the same bucket keys (a yardstick the port
+     never calls);
   3. the exchange kernel against its plain version at the bench mesh
      rescue shapes (4 shards, rcap 19,200 / 31,488 rows of 20 / 36
      int32 columns) and a small one (tolerance 0), timed beside its
@@ -153,9 +157,10 @@ def _device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _kernel_us(fn, iters: int = 5) -> str:
+def _kernel_us(fn, iters: int = 5) -> tuple[str, dict]:
     """The device microseconds per call of each CUDA kernel one call of
-    ``fn`` runs (torch.profiler), largest first."""
+    ``fn`` runs (torch.profiler): a line, largest first, and a dict by
+    kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -171,7 +176,8 @@ def _kernel_us(fn, iters: int = 5) -> str:
         if us > 0:
             name = e.key.replace("(anonymous namespace)::", "")
             rows.append((us, name.replace("void ", "").split("(")[0][:40]))
-    return ", ".join(f"{name} {us:.2f}" for us, name in sorted(rows, reverse=True))
+    line = ", ".join(f"{name} {us:.2f}" for us, name in sorted(rows, reverse=True))
+    return line, {name: us for us, name in rows}
 
 
 def _tables(capacity: int, P: int, G: int, lanes: int, dev):
@@ -214,6 +220,30 @@ def _class_heavy(capacity: int, P: int, G: int, lanes: int, dev):
         st[: n // 2], fo[: n // 2], fc[: n // 2] = st[src], fo[src], fc[src]
         out.append((st.astype(np.int32), fo.astype(np.int32)[:, None],
                     fc.astype(np.int16), rng.random(n) < 0.85))
+    return tuple(torch.from_numpy(np.stack([r[k] for r in out])).to(dev)
+                 for k in range(4))
+
+
+def _copy_heavy(capacity: int, P: int, G: int, lanes: int, dev):
+    """A [lanes, capacity*(1+P+G)] probe table (``_tables``) in which a
+    quarter of each lane's rows, at random positions, are alive copies
+    of 8 distinct rows of the lane: 8 buckets of ~2,600 copies at the
+    bench G = 32 shape.  One seed per lane."""
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch.ops import hashing
+
+    out = []
+    for s in range(lanes):
+        st, fo, fc, al = hashing.probe_candidates(capacity, P, G, 1, seed=s)
+        rng = np.random.default_rng(2000 + s)
+        n = st.shape[0]
+        src = rng.choice(n, 8, replace=False)
+        pos = rng.choice(n, n // 4, replace=False)
+        pick = src[rng.integers(0, 8, pos.size)]
+        st[pos], fo[pos], fc[pos], al[pos] = st[pick], fo[pick], fc[pick], True
+        out.append((st, fo, fc, al))
     return tuple(torch.from_numpy(np.stack([r[k] for r in out])).to(dev)
                  for k in range(4))
 
@@ -315,6 +345,25 @@ def _bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+#: The keep mask's sort stage: the kernels of its sort passes (the
+#: first pass's histogram is made by the hash pass and is not in it; the
+#: bins' kernel also runs the kill, which is in it).
+SORT_KERNELS = ("k_scan_hist", "k_radix_scatter", "k_bin_sort_kill")
+
+
+def _bucket_keys(st, fo, fc, al):
+    """The keep mask's sort keys as one PyTorch sort would take them:
+    each row's bucket (top bucket bits of h1), dead rows keyed past
+    every bucket, [L, n] int64."""
+    import torch
+
+    from jepsen_tpu_torch.ops import hashing
+
+    h1, _h2 = hashing.row_hashes(st, fo, fc)
+    _ibits, bbits = hashing._bucket_bits(st.shape[1])
+    return torch.where(al, h1 >> (32 - bbits), 1 << bbits)
+
+
 def check_kernels(dev, wk) -> dict:
     """Phase 2: each kernel against its plain version; returns the
     bench-shape measurements per kernel."""
@@ -322,7 +371,8 @@ def check_kernels(dev, wk) -> dict:
 
     shapes = [("small", 64, 4, 3, 2, _tables), ("bench-G16", 2048, 8, 16, 8, _tables),
               ("bench-G32", 2048, 8, 32, 8, _tables),
-              ("class-heavy", 2048, 8, 32, 8, _class_heavy)]
+              ("class-heavy", 2048, 8, 32, 8, _class_heavy),
+              ("copy-heavy", 2048, 8, 32, 8, _copy_heavy)]
     out = {}
     for tag, C, P, G, lanes, make in shapes:
         out[tag] = check_fused_table(tag, wk, *make(C, P, G, lanes, dev), C,
@@ -389,12 +439,23 @@ def check_fused_table(tag, wk, st, fo, fc, al, C, n_parents, m, window=4,
           f"{fused_plain:.4f} ms, bound {fb:.4f} ms by {fbb}); fused tail "
           f"{tail_ms:.4f} ms per call, {tail_dev:.4f} ms on the card (bound "
           f"{tb:.4f} ms by {tbb})", flush=True)
-    print(f"keep_kernels[{tag}]: us per call "
-          f"{_kernel_us(lambda: wk.keep_mask(st, fo, fc, al, window))}", flush=True)
-    print(f"tail_kernels[{tag}]: us per call {_kernel_us(tail)}", flush=True)
+    keep_line, keep_us = _kernel_us(lambda: wk.keep_mask(st, fo, fc, al, window))
+    print(f"keep_kernels[{tag}]: us per call {keep_line}", flush=True)
+    print(f"tail_kernels[{tag}]: us per call {_kernel_us(tail)[0]}", flush=True)
+    # the sort stage against one stable PyTorch sort of the same keys
+    key = _bucket_keys(st, fo, fc, al)
+    sort_ms = _time_ms(lambda: torch.sort(key, dim=-1, stable=True), 20)
+    sort_dev = _device_ms(lambda: torch.sort(key, dim=-1, stable=True))
+    stage_us = sum(us for name, us in keep_us.items()
+                   if name.startswith(SORT_KERNELS))
+    print(f"sort_stage[{tag}]: sort passes {stage_us:.2f} us on the card; "
+          f"torch.sort(stable=True) of the [{lanes}, {n}] bucket keys "
+          f"{sort_ms:.4f} ms per call, {sort_dev:.4f} ms on the card", flush=True)
     return {
         "keep_mask": dict(max_abs_err=err_keep, ms=keep_ms, device_ms=keep_dev,
-                          plain_ms=keep_plain, bound_ms=kb, bound_by=kbb),
+                          plain_ms=keep_plain, bound_ms=kb, bound_by=kbb,
+                          sort_stage_ms=stage_us / 1e3,
+                          sort_library_ms=sort_dev),
         "fused_frontier_update": dict(max_abs_err=max(err_keep, err_fused),
                                       ms=fused_ms, device_ms=fused_dev,
                                       plain_ms=fused_plain, bound_ms=fb,
@@ -480,13 +541,15 @@ def entry_times(dev, wk, mesh_mod) -> dict:
     """``--entry-times``: the public entry points of the imported port
     package (``keep_mask``, ``fused_frontier_update``, ``mesh_exchange``)
     at the bench shapes, per call (``_time_ms``) and on the card alone
-    (``_device_ms``; null where a graph cannot capture the call), for a
-    side-by-side run of two commits in one call on one card."""
+    (``_device_ms``; null where a graph cannot capture the call), and the
+    keep mask's kernels' device µs, for a side-by-side run of two commits
+    in one call on one card."""
     import torch
 
     out = {"module": wk.__file__}
     for tag, make, G in (("bench-G16", _tables, 16), ("bench-G32", _tables, 32),
-                         ("class-heavy", _class_heavy, 32)):
+                         ("class-heavy", _class_heavy, 32),
+                         ("copy-heavy", _copy_heavy, 32)):
         st, fo, fc, al = make(2048, 8, G, 8, dev)
 
         def fused():
@@ -498,7 +561,8 @@ def entry_times(dev, wk, mesh_mod) -> dict:
 
         out[tag] = {"keep_ms": _time_ms(keep, 20), "keep_device_ms": _device_ms(keep),
                     "fused_ms": _time_ms(fused, 20),
-                    "fused_device_ms": _device_ms(fused)}
+                    "fused_device_ms": _device_ms(fused),
+                    "keep_kernels_us": _kernel_us(keep)[1]}
     for tag, rcap, nc in (("rescue-G16", 19200, 20), ("rescue-G32", 31488, 36)):
         mesh = mesh_mod.make_mesh(MESH_SHARDS)
         send = torch.randint(-2**31, 2**31 - 1, (MESH_SHARDS, MESH_SHARDS, rcap, nc),
@@ -865,7 +929,9 @@ def main(argv=None) -> int:
          "plain_ms": bench[name]["plain_ms"],
          "bound_ms": bench[name]["bound_ms"],
          "bound_by": bench[name]["bound_by"],
-         "library_ms": bench[name].get("library_ms")}
+         "library_ms": bench[name].get("library_ms"),
+         **{k: bench[name][k] for k in ("sort_stage_ms", "sort_library_ms")
+            if k in bench[name]}}
         for name in ("keep_mask", "fused_frontier_update", "mesh_exchange")
     ]
     print(json.dumps({"kernels": kernels}))

@@ -9,45 +9,69 @@
 // What bounds it on this card.  The wide rung's candidate table is
 // 51,200 or 83,968 rows per lane (capacity 2048, P = 8, G = 16 or 32):
 // ~7 MB per lane with the int16 counts, far more than one SM's 227 KB of
-// shared memory, but a 16-lane sub-batch (~110 MB) streams through HBM
-// once per pass and the per-lane scratch (hashes, bucket lists) sits in
-// the 50 MB L2.  The dedup passes are bound by bytes moved.  The tail
-// works on the 2C = 4096-row buffer (0.3 MB per lane at G = 32): the
-// bytes it must move take about a microsecond, so launches and the
-// domination tests within each (state, fok) class bound it.
+// shared memory.  The keep mask's bound is reading that table once (49 MB
+// for 8 lanes at G = 32: 0.015 ms); its hash pass also folds two fmix32
+// lanes over every column (9 integer operations a column and lane), and
+// its sort and kill move a few bytes a row through L2 in a chain of small
+// kernels, so what bounds it in practice is integer work and the latency
+// of those kernels.  The tail works on the 2C = 4096-row buffer (0.3 MB
+// per lane at G = 32): the bytes it must move take about a microsecond,
+// so launches and the domination tests within each (state, fok) class
+// bound it.
 //
 // Design (what the Pallas kernel computes, not how it tiled VMEM):
 //   The Pallas kernel is one sequential grid sweep with every table in
 //   VMEM and an O(n^2) all-pairs bucket-rank sweep.  Hopper's blocks run
-//   unordered, so each phase is its own grid over (rows, lanes), and the
-//   all-pairs sweep becomes a bucket partition:
-//   1. k_hash_count: two murmur fmix32 row-hash lanes per row (the JAX
-//      package's hash_rows fold), and a histogram of alive rows per
-//      (lane, super-bucket) with atomics.  A super-bucket is the top
-//      sbits bits of h1 (sbits <= the packed key's bucket bits), so rows
-//      of one bucket share one super-bucket.
-//   2. k_exclusive_scan: per-lane exclusive scan of the histogram.
-//   3. k_scatter: row indices into their super-bucket's slot list
-//      (atomic cursor; the order inside a list is arbitrary).
-//   4. k_pre: pre[i] = number of alive rows j < i in i's bucket (the
-//      bucket prefix rank of _keep_bucket), by scanning i's short list.
-//   5. k_kill: i dies iff an alive j < i in its list has both hash lanes
-//      equal and pre[i] - pre[j] <= window.  Both scans read the list in
-//      any order, so the result is deterministic without sorting it.
-//      Each block also counts its kept rows (__syncthreads_count) for
-//      the compaction.
+//   unordered, so each phase is its own grid over (tiles, lanes).  The
+//   first port partitioned rows into atomic super-bucket lists in arbitrary
+//   order and had each row scan its list twice (for its bucket rank and
+//   for an equal predecessor): a bucket of k copies of one row cost k^2
+//   gathers, and the list scan ran one block per lane.  The keep mask is
+//   now a stable sort and a stencil, linear in the table whatever the
+//   bucket sizes (wk_keep_mask):
+//   1. k_hash_keys: one block per 256 rows of a lane, one row a thread.
+//      The block's fcr rows are one contiguous range: they are copied to
+//      shared memory with 16-byte cp.async (each row's chunks rotated so
+//      that a quarter-warp's 16-byte loads hit 8 different bank groups),
+//      and each thread folds its row's two murmur fmix32 lanes (the JAX
+//      package's hash_rows order) from there.  It writes the hash pair,
+//      the packed key [bucket | index] of an alive row (bucket = top
+//      bbits of h1, bbits + index bits = 31: the JAX package's
+//      _keep_bucket key), keep = 0 for a dead row, and its rows'
+//      histogram of the first sort digit (shared atomics).
+//   2. k_scan_hist and k_radix_scatter: the first sort pass, a stable
+//      scatter of each lane's alive keys (each carrying its hash pair)
+//      by the bucket's top digit (8 bits) into bins of whole buckets, in
+//      candidate order inside a bin: a digit-major scan of the hash
+//      pass's histograms spread over 2048-entry blocks (a reader adds
+//      the earlier blocks' totals itself), then 1024-row tiles ranked
+//      stably (__match_any_sync peers per warp and scanned (item, warp)
+//      counts), laid out sorted in shared memory and written to their
+//      digit runs by consecutive threads.
+//   3. k_bin_sort_kill, one block per bin: the bin sorted by the
+//      bucket's remaining bits (6 or 7 at the main path's 14 and 15
+//      bucket bits) the same stable way, then the kill as a stencil over
+//      the sorted bin: position q dies iff one of q-1 ... q-window has
+//      both hash lanes equal (equal h1 means one bucket, and buckets are
+//      contiguous runs in candidate order, so no run start is needed); a
+//      kept row overflows iff q - window is in its bucket.  Stable passes
+//      keep candidate order inside a bucket, so a row's sorted position
+//      minus its bucket's start is its bucket prefix rank.  keep is
+//      written in candidate order.  For the fused update, k_chunk_count
+//      then counts each 512-row chunk's kept rows (__syncthreads_count)
+//      for the tail.
 //   Fused tail (wk_fused_tail):
-//   6. k_compact1, one block per 512-row chunk of the keep mask: the
-//      block adds up k_kill's kept counts of the lane's earlier chunks
+//   4. k_compact1, one block per 512-row chunk of the keep mask: the
+//      block adds up the kept counts of the lane's earlier chunks
 //      itself (no scan launch), scans its chunk, and copies its
 //      survivors' columns into consecutive buffer rows as whole 16-, 8-
 //      or 4-byte words, so that neighbouring threads store neighbouring
 //      words.  Each buffer row gets its child bit (an explicit column on
 //      the mesh path, else positional) and its class hash (state and fok
 //      only), counted into one of S = Cb / 8 class super-buckets.
-//   7. k_exclusive_scan and k_class_scatter: the lane's class
+//   5. k_exclusive_scan and k_class_scatter: the lane's class
 //      super-bucket lists, end to end (histogram, scan, atomic scatter).
-//   8. k_prune_tiles<GW> (G in {4, 8, 16, 32, 64}; k_prune_list, one
+//   6. k_prune_tiles<GW> (G in {4, 8, 16, 32, 64}; k_prune_list, one
 //      thread per row with scalar compares, takes other shapes): row j
 //      dies iff a row of its class dominates it (the saturating one-hot
 //      contract of exact_prune_mxu, as integer compares), and only the
@@ -58,25 +82,27 @@
 //      (hundreds of rows, as real frontiers have) is compared block
 //      against tile, every thread reading the same staged row; a
 //      singleton costs a few compares.
-//   9. k_compact2, one block per 512 buffer rows: it counts the lane's
+//   7. k_compact2, one block per 512 buffer rows: it counts the lane's
 //      survivors before its chunk itself, copies its survivors as whole
 //      words, adds their fingerprint (per-warp sums, unsigned atomics,
 //      mod 2^32 in any order), zeroes its span of output rows past the
 //      survivors, and writes the overflow flag.
 //   Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W), on the card
-//   alone: the tail takes 0.045 ms on the bench G = 32 table (bound
-//   0.0013 ms by bytes; prune 0.015, compactions 0.010 and 0.011, lists
-//   0.005) and 0.077 ms on the class-heavy table (prune 0.046; bound
-//   0.0037 ms by operations); the whole update 0.21 ms, of which the
-//   keep mask takes 0.16 ms.  Over the bench ladder's 136 calls the
-//   prune takes 1.7 ms on the card (chip_smoke.py --profile).  A call
-//   from Python can cost more host time than card time (allocation,
-//   ctypes, about a dozen launches).
+//   alone: the keep mask takes 0.087 ms on the bench G = 32 table (hash
+//   pass 0.030, first sort pass 0.014, bins 0.038; the list scans took
+//   0.163) and 0.09 ms on tables whose buckets hold hundreds or
+//   thousands of copies of one row (the list scans: 0.67 and 4.2 ms).  The tail
+//   takes 0.045 ms (bound 0.0013 ms by bytes; prune 0.015, compactions
+//   0.010 and 0.011, lists 0.005) and 0.073 ms on the class-heavy table
+//   (prune 0.042-0.049); the whole update 0.13 ms.  A call from Python can
+//   cost more host time than card time (allocation, ctypes, about a
+//   dozen launches).
 //
 // C interface for ctypes: every entry point launches on the caller's
 // stream, allocates nothing (the caller passes every buffer), does not
 // synchronise, and returns cudaGetLastError().
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -88,11 +114,29 @@ constexpr uint32_t kFpSeed1 = 0xFEED0001u;
 constexpr uint32_t kFpSeed2 = 0xFEED0002u;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
-// Rows per block of the kill and first compaction passes (one row per
-// thread); the Python wrapper sizes the per-block count table with it.
+// Rows per block of the first compaction (one row per thread), and the
+// chunk of the keep mask's per-chunk kept counts; the Python wrapper
+// sizes the count table with it.
 constexpr int kChunkRows = 512;
 constexpr int kRowThreads = 256;
 constexpr int kScanThreads = 1024;
+// The keep mask: rows per sort tile, threads per block (and rows per
+// hash block), items per thread; the widest sort digit; histogram
+// entries per scan block.
+constexpr int kTileRows = 1024;
+constexpr int kSortThreads = 256;
+constexpr int kItems = kTileRows / kSortThreads;
+constexpr int kMaxDigitBits = 8;
+constexpr int kMaxBins = 1 << kMaxDigitBits;
+constexpr int kScanItems = 8;
+constexpr int kScanChunk = kSortThreads * kScanItems;
+// Bucket bits the bin kernel sorts itself (the first pass takes the rest,
+// at most kMaxDigitBits): bins of a few hundred rows at the main path's
+// tables.
+constexpr int kBinBits = 8;
+// Window neighbours the stencil loads together.
+constexpr int kUnrolledWindow = 8;
+
 // The tiled prune: j rows per block (one per thread) and i rows per
 // staged tile; blocks that share one j tile, each with a slice of its
 // list span; fok words it stages (P <= 128).
@@ -101,11 +145,13 @@ constexpr int kPruneSplit = 4;
 constexpr int kPruneMaxW = 4;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
+  // the shifts as high products run on the multiply pipe, beside the
+  // xors on the integer pipe
+  x ^= __umulhi(x, 1u << 16);
   x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
+  x ^= __umulhi(x, 1u << 19);
   x *= 0xC2B2AE35u;
-  x ^= x >> 16;
+  x ^= __umulhi(x, 1u << 16);
   return x;
 }
 
@@ -166,28 +212,473 @@ __device__ int block_exclusive_scan(int v, int* total) {
   return base + inc - v;
 }
 
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+                 "n"(N)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
-// Dedup (keep mask)
+// Dedup (keep mask): row hash, stable radix sort of the alive rows by
+// bucket, windowed kill over the sorted order
 // ---------------------------------------------------------------------------
 
-__global__ void k_hash_count(int n, int W, int G, int S, int sb_shift,
-                             const int32_t* __restrict__ state,
-                             const uint32_t* __restrict__ fok,
-                             const int16_t* __restrict__ fcr,
-                             const uint8_t* __restrict__ alive,
-                             uint32_t* __restrict__ h1,
-                             uint32_t* __restrict__ h2,
-                             int32_t* __restrict__ cnt) {
-  const int l = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t r = static_cast<int64_t>(l) * n + i;
-  uint32_t a, b;
-  row_hash(state, fok, fcr, r, W, G, kHashSeed1, kHashSeed2, a, b);
-  h1[r] = a;
-  h2[r] = b;
-  if (alive[r]) atomicAdd(&cnt[static_cast<int64_t>(l) * S + (a >> sb_shift)], 1);
+// The packed sort key of an alive row: [0 | bucket:bbits | index:ibits]
+// (bbits + ibits = 31, hashing._bucket_bits).  Sorting the keys sorts
+// by bucket with candidate order inside each bucket, so a row's sorted
+// position minus its bucket's first position is its bucket prefix rank.
+// A dead row's key is kDeadKey (top bit set): it never enters the sort.
+constexpr uint32_t kDeadKey = 0xFFFFFFFFu;
+
+// A sort digit: bits [shift, shift + width) of the key.
+struct Digit {
+  int shift;
+  int bins;  // 1 << width
+};
+
+__device__ __forceinline__ int digit_of(uint32_t key, Digit d) {
+  return static_cast<int>(key >> d.shift) & (d.bins - 1);
 }
+
+// The fcr chunk (16 bytes) s of staged row i sits at chunk position
+// (s + rot) % K of the row (K chunks a row), with rot chosen so that the
+// 8 rows a quarter-warp reads with 16-byte loads fall in 8 different
+// 16-byte bank groups: rows of one 128-byte line differ in line offset,
+// rows of consecutive lines in rotation.
+template <int K>
+__device__ __forceinline__ int stage_rot(int i) {
+  constexpr int kPerLine = K >= 8 ? 1 : 8 / K;
+  return (i / kPerLine) % K;
+}
+
+__device__ __forceinline__ void fold_word(uint32_t& a, uint32_t& b, uint32_t c) {
+  a = mix32(a ^ c);
+  b = mix32(b ^ c);
+}
+
+// Fold two int16 counts packed in one little-endian word, low one first.
+__device__ __forceinline__ void fold_pair(uint32_t& a, uint32_t& b, uint32_t w) {
+  fold_word(a, b, static_cast<uint32_t>(static_cast<int32_t>(static_cast<int16_t>(w & 0xFFFFu))));
+  fold_word(a, b, static_cast<uint32_t>(static_cast<int32_t>(static_cast<int16_t>(w >> 16))));
+}
+
+// The sum of a lane's chunk totals cs[0..nch) from k_scan_hist (the
+// lane's alive rows), with the whole block; every thread must call it.
+__device__ int lane_total(const int32_t* __restrict__ cs, int nch) {
+  int v = 0;
+  for (int c = threadIdx.x; c < nch; c += blockDim.x) v += cs[c];
+  int tot;
+  block_exclusive_scan(v, &tot);
+  return tot;
+}
+
+// Entry e's lane-wide offset: its scanned value plus the totals of the
+// lane's earlier chunks (loaded together, eight at a time).
+__device__ __forceinline__ int hist_offset(const int32_t* __restrict__ h,
+                                           const int32_t* __restrict__ cs, int e) {
+  int off = h[e];
+  const int nc = e / kScanChunk;
+  for (int c0 = 0; c0 < nc; c0 += 8) {
+#pragma unroll
+    for (int c = c0; c < c0 + 8; ++c) off += (c < nc) ? cs[c] : 0;
+  }
+  return off;
+}
+
+// The row hashes, the packed keys and the first sort pass's histogram.
+// Block (b, l) takes rows [b * kSortThreads, +kSortThreads) of lane l,
+// one row a thread: a sub-tile of kTileRows / kSortThreads per sort
+// tile.  K > 0 (G = 8K for K in {1, 2, 4, 8}, fcr 16-byte aligned): the
+// block's fcr rows, one contiguous range of K 16-byte chunks a row, are
+// copied to shared memory with 16-byte cp.async (rotated per row, see
+// stage_rot), and each thread reads its row from there with 16-byte
+// loads; K = 0 (other shapes): each thread reads its row's counts from
+// device memory.  Writes hh[r] = (h1, h2), key[r], keep[r] = 0 for a
+// dead row, the sub-tile's count of alive rows per digit d0 (shared
+// atomics, then one column of hist [L][bins][cols]), and block 0 zeroes
+// ovf.
+template <int K>
+__global__ void __launch_bounds__(kSortThreads)
+    k_hash_keys(int n, int W, int G, int bbits, int ibits, Digit d0, int cols,
+                const int32_t* __restrict__ state,
+                const uint32_t* __restrict__ fok,
+                const int16_t* __restrict__ fcr,
+                const uint8_t* __restrict__ alive, uint2* __restrict__ hh,
+                uint32_t* __restrict__ key, uint8_t* __restrict__ keep,
+                int32_t* __restrict__ hist, uint8_t* __restrict__ ovf) {
+  extern __shared__ __align__(16) uint8_t s_fcr[];
+  __shared__ int s_hist[kMaxBins];
+  const int l = blockIdx.y;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int v = tid; v < d0.bins; v += kSortThreads) s_hist[v] = 0;
+  if (b == 0 && tid == 0) ovf[l] = 0;
+  const int64_t lane0 = static_cast<int64_t>(l) * n;
+  const int r0 = b * kSortThreads;
+  const int rows = min(kSortThreads, n - r0);
+  const int i = r0 + tid;
+  const int64_t r = lane0 + i;
+  // the row's other columns, loaded while the counts are staged
+  uint32_t st = 0u, fo0 = 0u;
+  bool live = false;
+  if (tid < rows) {
+    st = static_cast<uint32_t>(state[r]);
+    fo0 = W > 0 ? fok[r * W] : 0u;
+    live = alive[r] != 0;
+  }
+  if constexpr (K > 0) {
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(fcr + (lane0 + r0) * G);
+    for (int c = tid; c < rows * K; c += kSortThreads) {
+      const int row = c / K;
+      const int s = c % K;
+      cp_async<16>(s_fcr + 16 * (row * K + (s + stage_rot<K>(row)) % K), src + 16 * c);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  if (tid < rows) {
+    uint32_t a = kHashSeed1 ^ kGolden, h = kHashSeed2 ^ kGolden;
+    fold_word(a, h, st);
+    if (W > 0) fold_word(a, h, fo0);
+    for (int w = 1; w < W; ++w) fold_word(a, h, fok[r * W + w]);
+    if constexpr (K > 0) {
+      const int rot = stage_rot<K>(tid);
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        const uint4 v = *reinterpret_cast<const uint4*>(s_fcr + 16 * (tid * K + (s + rot) % K));
+        fold_pair(a, h, v.x);
+        fold_pair(a, h, v.y);
+        fold_pair(a, h, v.z);
+        fold_pair(a, h, v.w);
+      }
+    } else {
+      for (int g = 0; g < G; ++g) {
+        fold_word(a, h, static_cast<uint32_t>(static_cast<int32_t>(fcr[r * G + g])));
+      }
+    }
+    hh[r] = make_uint2(a, h);
+    if (live) {
+      const uint32_t k = ((a >> (32 - bbits)) << ibits) | static_cast<uint32_t>(i);
+      key[r] = k;
+      atomicAdd(&s_hist[digit_of(k, d0)], 1);
+    } else {
+      key[r] = kDeadKey;
+      keep[r] = 0;
+    }
+  }
+  __syncthreads();
+  for (int v = tid; v < d0.bins; v += kSortThreads) {
+    hist[(static_cast<int64_t>(l) * d0.bins + v) * cols + b] = s_hist[v];
+  }
+}
+
+// In-place exclusive scan of each lane's histogram [bins][cols],
+// flattened digit-major (E = bins * cols entries), in chunks of
+// kScanChunk entries: block (c, l) scans chunk c of lane l and writes its
+// total to csum [L][nch].  An entry's lane-wide offset is its scanned
+// value plus the totals of the lane's earlier chunks (hist_offset).
+__global__ void __launch_bounds__(kSortThreads)
+    k_scan_hist(int E, int nch, int32_t* __restrict__ hist,
+                int32_t* __restrict__ csum) {
+  const int l = blockIdx.y;
+  const int c = blockIdx.x;
+  int32_t* h = hist + static_cast<int64_t>(l) * E;
+  const int e0 = c * kScanChunk + threadIdx.x * kScanItems;
+  int v[kScanItems];
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    v[k] = (e0 + k < E) ? h[e0 + k] : 0;
+    sum += v[k];
+  }
+  int tot;
+  int run = block_exclusive_scan(sum, &tot);
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    if (e0 + k < E) h[e0 + k] = run;
+    run += v[k];
+  }
+  if (threadIdx.x == 0) csum[static_cast<int64_t>(l) * nch + c] = tot;
+}
+
+// The first sort pass: a stable scatter of each lane's alive keys, each
+// carrying its hash pair, by their top digit d, so that each lane's keys
+// end up grouped into bins of whole buckets, in candidate order inside a
+// bin.  Block (t, l) takes rows [t * kTileRows, +kTileRows) of lane l,
+// kItems a thread (row t * kTileRows + k * kSortThreads + tid, so that
+// (k, warp, lane) is row order); dead keys are skipped.  The histogram
+// has a column per hash block, kItems of them a tile: the tile's run of
+// digit v starts at the scanned entry of (v, t * kItems).
+// Ranks inside the tile are stable: each warp groups its keys by digit
+// (__match_any_sync) and ranks them by lane; the (item, warp) counts of
+// each digit are scanned in row order.  The tile's keys and hash pairs
+// are then laid out in shared memory in sorted order and written to
+// their runs by consecutive threads.
+__global__ void __launch_bounds__(kSortThreads)
+    k_radix_scatter(int n, Digit d, int cols, int nch,
+                    const int32_t* __restrict__ hist,
+                    const int32_t* __restrict__ csum,
+                    const uint32_t* __restrict__ kin,
+                    const uint2* __restrict__ hin,
+                    uint32_t* __restrict__ kout, uint2* __restrict__ hout) {
+  constexpr int kGroups = kItems * (kSortThreads / 32);
+  // the (item, warp) counts, then (aliased) the tile in sorted order
+  __shared__ __align__(16) int s_cnt[kGroups * kMaxBins];
+  __shared__ int s_base[kMaxBins];  // lane-wide run start of each digit
+  __shared__ int s_off[kMaxBins];   // tile-local start of each digit
+  static_assert(kTileRows * (sizeof(uint32_t) + sizeof(uint2)) <= sizeof(s_cnt),
+                "the sorted tile must fit in the count table");
+  uint32_t* s_key = reinterpret_cast<uint32_t*>(s_cnt);
+  uint2* s_h = reinterpret_cast<uint2*>(s_cnt + kTileRows);
+  const int l = blockIdx.y;
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int64_t lane0 = static_cast<int64_t>(l) * n;
+  // the tile's keys and hash pairs, loaded before the offsets are known
+  uint32_t key[kItems];
+  uint2 hv[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int q = t * kTileRows + k * kSortThreads + tid;
+    key[k] = q < n ? kin[lane0 + q] : kDeadKey;
+    if (key[k] != kDeadKey) hv[k] = hin[lane0 + q];
+  }
+  const int32_t* cs = csum + static_cast<int64_t>(l) * nch;
+  const int32_t* h = hist + static_cast<int64_t>(l) * d.bins * cols;
+  for (int v = tid; v < d.bins; v += kSortThreads) {
+    s_base[v] = hist_offset(h, cs, v * cols + t * kItems);
+  }
+  for (int u = tid; u < kGroups * kMaxBins; u += kSortThreads) s_cnt[u] = 0;
+  __syncthreads();
+  int dig[kItems], rank[kItems];
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    dig[k] = (key[k] == kDeadKey) ? d.bins : digit_of(key[k], d);
+    const unsigned peers = __match_any_sync(0xffffffffu, dig[k]);
+    rank[k] = __popc(peers & lt);
+    if (dig[k] < d.bins && lane == __ffs(peers) - 1) {
+      s_cnt[(k * (kSortThreads / 32) + wid) * kMaxBins + dig[k]] = __popc(peers);
+    }
+  }
+  __syncthreads();
+  // each digit's (item, warp) counts to exclusive offsets, in position
+  // order; the digit's tile total to the scan below
+  int tot_v = 0;
+  if (tid < d.bins) {
+    for (int g = 0; g < kGroups; ++g) {
+      const int c = s_cnt[g * kMaxBins + tid];
+      s_cnt[g * kMaxBins + tid] = tot_v;
+      tot_v += c;
+    }
+  }
+  int nvalid;
+  const int off_v = block_exclusive_scan(tot_v, &nvalid);
+  if (tid < d.bins) s_off[tid] = off_v;
+  __syncthreads();
+  int li[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    li[k] = (dig[k] < d.bins)
+                ? s_off[dig[k]] + s_cnt[(k * (kSortThreads / 32) + wid) * kMaxBins + dig[k]] + rank[k]
+                : -1;
+  }
+  __syncthreads();  // s_key and s_h overwrite the counts
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (li[k] >= 0) {
+      s_key[li[k]] = key[k];
+      s_h[li[k]] = hv[k];
+    }
+  }
+  __syncthreads();
+  for (int j = tid; j < nvalid; j += kSortThreads) {
+    const uint32_t k = s_key[j];
+    const int v = digit_of(k, d);
+    const int64_t o = lane0 + s_base[v] + (j - s_off[v]);
+    kout[o] = k;
+    hout[o] = s_h[j];
+  }
+}
+
+// Entry e's lane-wide offset (see hist_offset), with the whole block:
+// the earlier chunks' totals are loaded in parallel and summed.  Every
+// thread must call it.
+__device__ int block_hist_offset(const int32_t* __restrict__ h,
+                                 const int32_t* __restrict__ cs, int e) {
+  int v = 0;
+  for (int c = threadIdx.x; c < e / kScanChunk; c += blockDim.x) v += cs[c];
+  int tot;
+  block_exclusive_scan(v, &tot);
+  return h[e] + tot;
+}
+
+// After the first pass each lane's alive keys are grouped by their top
+// digit into bins of whole buckets, in candidate order inside a bin.
+// Block (v, l) finishes bin v of lane l:
+//   * an LSD sort of the bin by the remaining rbits bucket bits, in
+//     digits of rwidth bits: per digit the bin's counts (shared atomics)
+//     and their scan, then stable ranks in rounds of kTileRows keys
+//     (warp peers and scanned (item, warp) counts, as in the first pass,
+//     with running counts across rounds), scattering between the two
+//     buffers over the bin's range;
+//   * the kill, a stencil over the sorted bin: position q is a duplicate
+//     iff one of q-1 ... q-window has both hash lanes equal.  Equal h1
+//     means the same bucket and buckets are contiguous runs in candidate
+//     order, so those are the bucket's alive rows j < i with pre[i] -
+//     pre[j] <= window, and no position before the bin can match.  A
+//     kept row overflows iff q - window is in the bin and in its bucket
+//     (pre >= window).  keep is written in candidate order.
+// A bin holds every copy of a row, so the work is linear in the bin.
+__global__ void __launch_bounds__(kSortThreads)
+    k_bin_sort_kill(int n, int ibits, int rbits, int rwidth, int window,
+                    int cols, int nch, const int32_t* __restrict__ hist,
+                    const int32_t* __restrict__ csum,
+                    uint32_t* __restrict__ ka, uint2* __restrict__ ha,
+                    uint32_t* __restrict__ kb, uint2* __restrict__ hb,
+                    uint8_t* __restrict__ keep, uint8_t* __restrict__ ovf) {
+  constexpr int kGroups = kItems * (kSortThreads / 32);
+  extern __shared__ int s_cnt[];    // [kGroups][1 << rwidth]
+  __shared__ int s_off[kMaxBins];   // bin-local start of each digit
+  __shared__ int s_run[kMaxBins];   // keys of each digit placed so far
+  const int l = blockIdx.y;
+  const int v = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int64_t lane0 = static_cast<int64_t>(l) * n;
+  const int32_t* cs = csum + static_cast<int64_t>(l) * nch;
+  const int32_t* h = hist + static_cast<int64_t>(l) * gridDim.x * cols;
+  const int s = block_hist_offset(h, cs, v * cols);
+  const int e = v + 1 < static_cast<int>(gridDim.x)
+                    ? block_hist_offset(h, cs, (v + 1) * cols)
+                    : lane_total(cs, nch);
+  if (s >= e) return;
+  const unsigned lt = (1u << lane) - 1u;
+  for (int shift = 0; shift < rbits; shift += rwidth) {
+    const Digit d{ibits + shift, 1 << min(rwidth, rbits - shift)};
+    for (int u = tid; u < d.bins; u += kSortThreads) {
+      s_off[u] = 0;
+      s_run[u] = 0;
+    }
+    __syncthreads();
+    for (int q = s + tid; q < e; q += kSortThreads) {
+      atomicAdd(&s_off[digit_of(ka[lane0 + q], d)], 1);
+    }
+    __syncthreads();
+    int tot;
+    const int ex = block_exclusive_scan(tid < d.bins ? s_off[tid] : 0, &tot);
+    if (tid < d.bins) s_off[tid] = ex;
+    for (int r0 = s; r0 < e; r0 += kTileRows) {
+      for (int u = tid; u < kGroups * d.bins; u += kSortThreads) s_cnt[u] = 0;
+      __syncthreads();
+      uint32_t key[kItems];
+      uint2 hv[kItems];
+      int dig[kItems], rank[kItems];
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int q = r0 + k * kSortThreads + tid;
+        key[k] = q < e ? ka[lane0 + q] : kDeadKey;
+        if (q < e) hv[k] = ha[lane0 + q];
+      }
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        dig[k] = key[k] == kDeadKey ? d.bins : digit_of(key[k], d);
+        const unsigned peers = __match_any_sync(0xffffffffu, dig[k]);
+        rank[k] = __popc(peers & lt);
+        if (dig[k] < d.bins && lane == __ffs(peers) - 1) {
+          s_cnt[(k * (kSortThreads / 32) + wid) * d.bins + dig[k]] = __popc(peers);
+        }
+      }
+      __syncthreads();
+      if (tid < d.bins) {
+        int run = s_run[tid];
+        for (int g = 0; g < kGroups; ++g) {
+          const int c = s_cnt[g * d.bins + tid];
+          s_cnt[g * d.bins + tid] = run;
+          run += c;
+        }
+        s_run[tid] = run;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        if (dig[k] < d.bins) {
+          const int64_t o = lane0 + s + s_off[dig[k]] +
+                            s_cnt[(k * (kSortThreads / 32) + wid) * d.bins + dig[k]] + rank[k];
+          kb[o] = key[k];
+          hb[o] = hv[k];
+        }
+      }
+      __syncthreads();  // the next round's counts, and the next pass's reads
+    }
+    uint32_t* kt = ka;
+    ka = kb;
+    kb = kt;
+    uint2* ht = ha;
+    ha = hb;
+    hb = ht;
+  }
+  const uint32_t imask = (1u << ibits) - 1u;
+  bool any_ovf = false;
+  for (int q = s + tid; q < e; q += kSortThreads) {
+    const uint32_t k = ka[lane0 + q];
+    const uint2 hq = ha[lane0 + q];
+    const uint32_t kw = q - window >= s ? ka[lane0 + q - window] : kDeadKey;
+    bool dup = false;
+    // the first kUnrolledWindow neighbours are loaded together
+#pragma unroll
+    for (int j = 1; j <= kUnrolledWindow; ++j) {
+      if (j <= window && q - j >= s) {
+        const uint2 g = ha[lane0 + q - j];
+        dup = dup || (g.x == hq.x && g.y == hq.y);
+      }
+    }
+    for (int p = q - kUnrolledWindow - 1; p >= max(s, q - window) && !dup; --p) {
+      const uint2 g = ha[lane0 + p];
+      dup = g.x == hq.x && g.y == hq.y;
+    }
+    keep[lane0 + (k & imask)] = dup ? 0 : 1;
+    any_ovf = any_ovf || (!dup && kw != kDeadKey && (kw >> ibits) == (k >> ibits));
+  }
+  if (any_ovf) ovf[l] = 1;
+}
+
+// The kept rows of each kChunkRows chunk of the keep mask, in candidate
+// order, for the fused tail's first compaction.
+__global__ void __launch_bounds__(kChunkRows)
+    k_chunk_count(int n, const uint8_t* __restrict__ keep,
+                  int32_t* __restrict__ chunk_cnt) {
+  const int l = blockIdx.y;
+  const int i = blockIdx.x * kChunkRows + threadIdx.x;
+  const int c = __syncthreads_count(i < n && keep[static_cast<int64_t>(l) * n + i]);
+  if (threadIdx.x == 0) chunk_cnt[static_cast<int64_t>(l) * gridDim.x + blockIdx.x] = c;
+}
+
+// ---------------------------------------------------------------------------
+// Fused tail: compaction to the 2C buffer with the class partition, the
+// class-partitioned domination prune, compaction to capacity with the
+// fingerprint
+// ---------------------------------------------------------------------------
 
 // Per-lane exclusive scan of in[l, 0..S) into out (and out2 when given).
 // One block per lane.
@@ -208,95 +699,6 @@ __global__ void k_exclusive_scan(int S, const int32_t* __restrict__ in,
     carry += tot;
   }
 }
-
-__global__ void k_scatter(int n, int S, int sb_shift,
-                          const uint32_t* __restrict__ h1,
-                          const uint8_t* __restrict__ alive,
-                          int32_t* __restrict__ cursor,
-                          int32_t* __restrict__ list) {
-  const int l = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t r = static_cast<int64_t>(l) * n + i;
-  if (!alive[r]) return;
-  const int slot = atomicAdd(&cursor[static_cast<int64_t>(l) * S + (h1[r] >> sb_shift)], 1);
-  list[static_cast<int64_t>(l) * n + slot] = i;
-}
-
-__global__ void k_pre(int n, int S, int sb_shift, int b_shift,
-                      const uint32_t* __restrict__ h1,
-                      const uint8_t* __restrict__ alive,
-                      const int32_t* __restrict__ off,
-                      const int32_t* __restrict__ cnt,
-                      const int32_t* __restrict__ list,
-                      int32_t* __restrict__ pre) {
-  const int l = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t lane0 = static_cast<int64_t>(l) * n;
-  const int64_t r = lane0 + i;
-  if (!alive[r]) return;
-  const uint32_t a = h1[r];
-  const uint32_t bucket = a >> b_shift;
-  const int64_t sbi = static_cast<int64_t>(l) * S + (a >> sb_shift);
-  const int32_t* lst = list + lane0 + off[sbi];
-  const int k = cnt[sbi];
-  int p = 0;
-  for (int t = 0; t < k; ++t) {
-    const int j = lst[t];
-    if (j < i && (h1[lane0 + j] >> b_shift) == bucket) ++p;
-  }
-  pre[r] = p;
-}
-
-__global__ void k_kill(int n, int S, int sb_shift, int window,
-                       const uint32_t* __restrict__ h1,
-                       const uint32_t* __restrict__ h2,
-                       const uint8_t* __restrict__ alive,
-                       const int32_t* __restrict__ off,
-                       const int32_t* __restrict__ cnt,
-                       const int32_t* __restrict__ list,
-                       const int32_t* __restrict__ pre,
-                       uint8_t* __restrict__ keep,
-                       int32_t* __restrict__ ovf,
-                       int32_t* __restrict__ chunk_cnt) {
-  const int l = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t lane0 = static_cast<int64_t>(l) * n;
-  int kept = 0;
-  if (i < n) {
-    const int64_t r = lane0 + i;
-    if (alive[r]) {
-      const uint32_t a = h1[r];
-      const uint32_t b = h2[r];
-      const int p = pre[r];
-      const int64_t sbi = static_cast<int64_t>(l) * S + (a >> sb_shift);
-      const int32_t* lst = list + lane0 + off[sbi];
-      const int k = cnt[sbi];
-      bool dup = false;
-      for (int t = 0; t < k && !dup; ++t) {
-        const int j = lst[t];
-        if (j < i) {
-          const int64_t rj = lane0 + j;
-          dup = h1[rj] == a && h2[rj] == b && p - pre[rj] <= window;
-        }
-      }
-      kept = dup ? 0 : 1;
-      if (kept && p >= window) atomicOr(&ovf[l], 1);
-    }
-    keep[r] = static_cast<uint8_t>(kept);
-  }
-  if (chunk_cnt != nullptr) {
-    const int c = __syncthreads_count(kept);
-    if (threadIdx.x == 0) chunk_cnt[static_cast<int64_t>(l) * gridDim.x + blockIdx.x] = c;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Fused tail: compaction to the 2C buffer with the class partition, the
-// class-partitioned domination prune, compaction to capacity with the
-// fingerprint
-// ---------------------------------------------------------------------------
 
 // Copy k rows of rb bytes with the whole block: destination row t (rows
 // consecutive from dst) <- source row sidx[t] of src, in the widest word
@@ -378,30 +780,8 @@ __device__ __forceinline__ uint32_t vmin_s16x2(uint32_t a, uint32_t b) {
   return d;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
-                 "n"(N)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The first compaction.  Block (b, l) takes the keep mask's chunk b of
-// lane l.  Its offset in the buffer is the sum of k_kill's kept counts
+// lane l.  Its offset in the buffer is the sum of k_chunk_count's kept counts
 // of the lane's earlier chunks, which the block adds up itself (no scan
 // launch); block 0 writes the lane's total nk0.  The chunk's survivors
 // go to shared memory in candidate order, and the block copies their
@@ -784,6 +1164,21 @@ inline unsigned blocks_for(int n, int per) {
   return static_cast<unsigned>((n + per - 1) / per);
 }
 
+inline int scan_chunks(int E) { return (E + kScanChunk - 1) / kScanChunk; }
+
+// int32 words of scratch wk_keep_mask needs for L lanes of n rows: two
+// key buffers, two hash-pair buffers, the histograms (the first pass's,
+// per hash sub-tile, is the largest) and the scan's chunk totals, each
+// region rounded to 64 words.
+inline int64_t round64(int64_t w) { return (w + 63) / 64 * 64; }
+
+int64_t keep_scratch_words(int L, int n) {
+  const int64_t ln = static_cast<int64_t>(L) * n;
+  const int64_t E = kMaxBins * static_cast<int64_t>((n + kSortThreads - 1) / kSortThreads);
+  return 2 * round64(ln) + 2 * round64(2 * ln) + round64(L * E) +
+         round64(L * ((E + kScanChunk - 1) / kScanChunk));
+}
+
 }  // namespace
 
 extern "C" {
@@ -794,47 +1189,74 @@ const char* wk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dedup keep mask over L lanes of n rows.  S = 2^sbits super-buckets,
-// bbits = the packed key's bucket bits (sbits <= bbits).  Scratch:
-// h1, h2, list, pre [L*n]; cnt, off, cursor [L*S] with cnt zeroed.
-// Outputs: keep [L*n] (0/1), ovf [L] (zeroed by the caller), and, when
-// chunk_cnt is not null, the kept count of each kChunkRows block
-// [L * ceil(n / kChunkRows)].
-int wk_keep_mask(int L, int n, int W, int G, int window, int sbits,
-                 int bbits, const void* state, const void* fok,
-                 const void* fcr, const void* alive, void* h1, void* h2,
-                 void* cnt, void* off, void* cursor, void* list, void* pre,
-                 void* keep, void* ovf, void* chunk_cnt, void* stream) {
+int64_t wk_keep_scratch_words(int L, int n) { return keep_scratch_words(L, n); }
+
+// Dedup keep mask over L lanes of n rows, with the packed key's bucket
+// and index bits (bbits + ibits = 31).  scratch: wk_keep_scratch_words
+// int32 words, 256-byte aligned.  Outputs: keep [L*n] and ovf [L] (0/1
+// bytes), and, when chunk_cnt is not null, the kept count of each
+// kChunkRows chunk [L * ceil(n / kChunkRows)].  No output needs zeroing
+// by the caller.  Launches: the hash pass, then per digit pass (the
+// first one's histogram comes from the hash pass) a histogram, a scan
+// and a scatter, then the stencil and, for chunk_cnt, the count.
+int wk_keep_mask(int L, int n, int W, int G, int window, int bbits, int ibits,
+                 const void* state, const void* fok, const void* fcr,
+                 const void* alive, void* scratch, void* keep, void* ovf,
+                 void* chunk_cnt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int S = 1 << sbits;
-  const int sb_shift = 32 - sbits;
-  const int b_shift = 32 - bbits;
-  const dim3 rows(blocks_for(n, kRowThreads), L);
-  k_hash_count<<<rows, kRowThreads, 0, s>>>(
-      n, W, G, S, sb_shift, static_cast<const int32_t*>(state),
-      static_cast<const uint32_t*>(fok), static_cast<const int16_t*>(fcr),
-      static_cast<const uint8_t*>(alive), static_cast<uint32_t*>(h1),
-      static_cast<uint32_t*>(h2), static_cast<int32_t*>(cnt));
-  k_exclusive_scan<<<L, kScanThreads, 0, s>>>(
-      S, static_cast<const int32_t*>(cnt), static_cast<int32_t*>(off),
-      static_cast<int32_t*>(cursor));
-  k_scatter<<<rows, kRowThreads, 0, s>>>(
-      n, S, sb_shift, static_cast<const uint32_t*>(h1),
-      static_cast<const uint8_t*>(alive), static_cast<int32_t*>(cursor),
-      static_cast<int32_t*>(list));
-  k_pre<<<rows, kRowThreads, 0, s>>>(
-      n, S, sb_shift, b_shift, static_cast<const uint32_t*>(h1),
-      static_cast<const uint8_t*>(alive), static_cast<const int32_t*>(off),
-      static_cast<const int32_t*>(cnt), static_cast<const int32_t*>(list),
-      static_cast<int32_t*>(pre));
-  const dim3 chunks(blocks_for(n, kChunkRows), L);
-  k_kill<<<chunks, kChunkRows, 0, s>>>(
-      n, S, sb_shift, window, static_cast<const uint32_t*>(h1),
-      static_cast<const uint32_t*>(h2), static_cast<const uint8_t*>(alive),
-      static_cast<const int32_t*>(off), static_cast<const int32_t*>(cnt),
-      static_cast<const int32_t*>(list), static_cast<const int32_t*>(pre),
-      static_cast<uint8_t*>(keep), static_cast<int32_t*>(ovf),
-      static_cast<int32_t*>(chunk_cnt));
+  if (bbits < 1 || ibits < 1 || bbits + ibits != 31 || n < 1 ||
+      n > (1 << ibits) || window < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t ln = static_cast<int64_t>(L) * n;
+  const int ntiles = (n + kTileRows - 1) / kTileRows;
+  const int sub = (n + kSortThreads - 1) / kSortThreads;  // hash blocks a lane
+  int32_t* w = static_cast<int32_t*>(scratch);
+  uint32_t* kbuf[2] = {reinterpret_cast<uint32_t*>(w),
+                       reinterpret_cast<uint32_t*>(w + round64(ln))};
+  w += 2 * round64(ln);
+  uint2* hbuf[2] = {reinterpret_cast<uint2*>(w),
+                    reinterpret_cast<uint2*>(w + round64(2 * ln))};
+  w += 2 * round64(2 * ln);
+  int32_t* hist = w;
+  const int64_t E = static_cast<int64_t>(kMaxBins) * sub;
+  int32_t* csum = hist + round64(L * E);
+  const bool aligned = reinterpret_cast<uintptr_t>(fcr) % 16 == 0;
+  // the first pass sorts by the top digit of the bucket; each bin (one
+  // top digit) is then sorted by the remaining bits in digits of rwidth
+  const int tbits = std::min(kMaxDigitBits, std::max(1, bbits - kBinBits));
+  const Digit top{ibits + bbits - tbits, 1 << tbits};
+  const int rbits = bbits - tbits;
+  const int rpasses = (rbits + kMaxDigitBits - 1) / kMaxDigitBits;
+  const int rwidth = rpasses > 0 ? (rbits + rpasses - 1) / rpasses : 0;
+#define WK_HASH_KEYS(K)                                                         \
+  k_hash_keys<K><<<dim3(sub, L), kSortThreads, kSortThreads * 16 * K, s>>>(     \
+      n, W, G, bbits, ibits, top, sub, static_cast<const int32_t*>(state),      \
+      static_cast<const uint32_t*>(fok), static_cast<const int16_t*>(fcr),      \
+      static_cast<const uint8_t*>(alive), hbuf[0], kbuf[0],                     \
+      static_cast<uint8_t*>(keep), hist, static_cast<uint8_t*>(ovf))
+  switch (aligned ? G : 0) {
+    case 8: WK_HASH_KEYS(1); break;
+    case 16: WK_HASH_KEYS(2); break;
+    case 32: WK_HASH_KEYS(4); break;
+    case 64: WK_HASH_KEYS(8); break;
+    default: WK_HASH_KEYS(0);
+  }
+#undef WK_HASH_KEYS
+  const int nch = scan_chunks(top.bins * sub);
+  k_scan_hist<<<dim3(nch, L), kSortThreads, 0, s>>>(top.bins * sub, nch, hist, csum);
+  k_radix_scatter<<<dim3(ntiles, L), kSortThreads, 0, s>>>(
+      n, top, sub, nch, hist, csum, kbuf[0], hbuf[0],
+      kbuf[1], hbuf[1]);
+  const int groups = kItems * (kSortThreads / 32);
+  k_bin_sort_kill<<<dim3(top.bins, L), kSortThreads,
+                    rbits > 0 ? sizeof(int) * groups << rwidth : 0, s>>>(
+      n, ibits, rbits, rwidth, window, sub, nch, hist, csum, kbuf[1], hbuf[1],
+      kbuf[0], hbuf[0], static_cast<uint8_t*>(keep), static_cast<uint8_t*>(ovf));
+  if (chunk_cnt != nullptr) {
+    k_chunk_count<<<dim3((n + kChunkRows - 1) / kChunkRows, L), kChunkRows, 0, s>>>(
+        n, static_cast<const uint8_t*>(keep), static_cast<int32_t*>(chunk_cnt));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,8 +7,11 @@ and ``csrc/mesh_exchange.cu`` and their plain PyTorch versions:
   * ``keep_mask`` — the dedup stage alone (row hash, bucket prefix rank,
     windowed 64-bit-hash kills): the keep mask in candidate order and
     the bucket overflow flag, bit-identical to ``hashing._keep_bucket``.
-    Replaces the Pallas kernel ``_keep_kernel``
-    (jepsen_tpu/ops/wide_kernel.py, ``keep_mask``).
+    On the card: a hash pass over fcr rows staged in shared memory, a
+    stable radix sort of each lane's alive rows by bucket, and a window
+    stencil over the sorted order, so its work is linear in the table
+    whatever the bucket sizes.  Replaces the Pallas kernel
+    ``_keep_kernel`` (jepsen_tpu/ops/wide_kernel.py, ``keep_mask``).
   * ``fused_frontier_update`` — that dedup, then compaction of the
     survivors into a 2C buffer, the one-hot domination prune on it, and
     compaction to capacity with the order-insensitive fingerprint: a
@@ -47,6 +50,7 @@ package.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 
@@ -88,7 +92,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "wk_chunk_rows": (_I, []),
     "wk_error_string": (ctypes.c_char_p, [_I]),
-    "wk_keep_mask": (_I, [_I] * 7 + [_P] * 15),
+    "wk_keep_scratch_words": (ctypes.c_int64, [_I, _I]),
+    "wk_keep_mask": (_I, [_I] * 7 + [_P] * 9),
     "wk_fused_tail": (_I, [_I] * 8 + [_P] * 25),
 }
 #: The most shards one exchange takes: the kernel gets its D send and D
@@ -139,14 +144,6 @@ def fused_feasible(n: int, capacity: int, max_count) -> bool:
             and capacity >= wide_min_capacity())
 
 
-def _super_bits(n: int) -> tuple[int, int]:
-    """(super-bucket bits, bucket bits) at n rows: the kernel partitions
-    rows by the top ``min(bucket bits, index bits)`` bits of h1, about
-    one super-bucket per row, so the bucket lists stay short."""
-    ibits, bbits = hashing._bucket_bits(n)
-    return min(bbits, ibits), bbits
-
-
 def _check_table(state, fok, fcr, alive):
     if state.dim() != 2:
         raise ValueError(f"state must be [lanes, n], got {tuple(state.shape)}")
@@ -167,36 +164,41 @@ def _check_table(state, fok, fcr, alive):
     return L, n, fok.shape[2], fcr.shape[2]
 
 
+@functools.lru_cache(maxsize=64)
+def _keep_geometry(L: int, n: int) -> tuple[int, int]:
+    """(kept-count chunks per lane, int32 scratch words) of the keep
+    mask's launch over L lanes of n rows."""
+    lib = _lib()
+    return -(-n // lib.wk_chunk_rows()), lib.wk_keep_scratch_words(L, n)
+
+
 def _launch_keep(state, fok, fcr, alive, window: int, with_chunks: bool):
     """Launch the keep-mask kernels; returns (keep [L, n] bool, ovf [L]
-    int32, per-block kept counts or None)."""
+    bool, per-chunk kept counts [L, chunks] int32 or None).  One
+    allocation holds the three outputs and the kernels' scratch (the
+    outputs are views of it)."""
     global KEEP_LAUNCHES
     L, n, W, G = _check_table(state, fok, fcr, alive)
     lib = _lib()
-    sbits, bbits = _super_bits(n)
-    S = 1 << sbits
-    dev = state.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    # h1, h2, off, cursor, list, pre; cnt and ovf start at zero
-    buf, (h1, h2, off, cursor, lst, pre) = _scratch(
-        dev, [L * n, L * n, L * S, L * S, L * n, L * n])
-    zeroed = torch.zeros(L * (S + 1), **i32)
-    keep = torch.empty(L, n, dtype=torch.bool, device=dev)
-    chunk_rows = lib.wk_chunk_rows()
-    chunk_cnt = (torch.empty(L, -(-n // chunk_rows), **i32)
-                 if with_chunks else None)
+    ibits, bbits = hashing._bucket_bits(n)
+    nchunks, words = _keep_geometry(L, n)
+    buf, (_k, ovf_p, cnt_p, scratch) = _scratch(
+        state.device, [-(-L * n // 4), -(-L // 4), L * nchunks, words])
     rc = lib.wk_keep_mask(
-        L, n, W, G, int(window), sbits, bbits,
+        L, n, W, G, int(window), bbits, ibits,
         state.data_ptr(), fok.data_ptr(), fcr.data_ptr(), alive.data_ptr(),
-        h1, h2, zeroed.data_ptr(), off, cursor, lst, pre, keep.data_ptr(),
-        zeroed.data_ptr() + 4 * L * S,
-        None if chunk_cnt is None else chunk_cnt.data_ptr(),
+        scratch, buf.data_ptr(), ovf_p, cnt_p if with_chunks else None,
         _build.stream(state),
     )
     _build.check(lib, rc, "wk_keep_mask")
-    del buf
     KEEP_LAUNCHES += 1
-    return keep, zeroed[L * S:], chunk_cnt
+    base = buf.data_ptr()
+    flags = buf.view(torch.uint8)
+    keep = flags[: L * n].view(torch.bool).view(L, n)
+    ovf = flags[ovf_p - base:][:L].view(torch.bool)
+    chunk_cnt = (buf[(cnt_p - base) // 4:][: L * nchunks].view(L, nchunks)
+                 if with_chunks else None)
+    return keep, ovf, chunk_cnt
 
 
 def keep_mask(state, fok, fcr, alive, window: int = 4):
@@ -208,7 +210,6 @@ def keep_mask(state, fok, fcr, alive, window: int = 4):
         keep, ovf = keep_mask_ref(state, fok, fcr, alive, window)
     else:
         keep, ovf, _ = _launch_keep(state, fok, fcr, alive, window, False)
-        ovf = ovf != 0
     return (keep[0], ovf[0]) if single else (keep, ovf)
 
 
