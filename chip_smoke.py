@@ -18,7 +18,14 @@ checkout (one nvcc per source, all started together), and then:
      (``wk_fused_tail`` after one keep mask) apart from it, each
      kernel's device time, and the keep mask's sort stage beside one
      stable ``torch.sort`` of the same bucket keys (a yardstick the port
-     never calls);
+     never calls); then, untimed and at tolerance 0, small tables at the
+     geometries the bench does not reach (G = 4, 8 and 64, probe and
+     class-heavy rows; P = 40 and 128, so W = 2 and 4) and the keep
+     mask's edge tables of tests/test_torch_keep_sort.py (1,000 copies of
+     a row, copies ``window`` and ``window + 1`` bucket-mates apart, one
+     bucket for every alive row, none or one row alive, a ragged row
+     count, 22 bucket bits, 20,000 rows with three copy groups), each
+     through both kernels;
   3. the exchange kernel against its plain version at the bench mesh
      rescue shapes (4 shards, rcap 19,200 / 31,488 rows of 20 / 36
      int32 columns) and a small one (tolerance 0), timed beside its
@@ -56,10 +63,53 @@ checkout (one nvcc per source, all started together), and then:
      first 8 histories the greedy walk left to the frontier rungs: at
      least one verdict decided, and no disagreement with the exact
      sweep (100,000-configuration budget).
+  8. the single-history path (``wgl.analysis``, the chunked engine), with
+     the launch counts set to 0 before it and read after it (keep mask
+     and fused update must launch): (a) BASELINE config 2, a 10,000-op
+     CAS-register history of 32 processes (5 % :info, seed 0; 7,091
+     barriers, P = 32, G = 30 padded to 32), on the fast engine under
+     "fused" at capacity (1024, 4096) and on the default ladder (128,
+     1024, 4096): neither may refute it, and the greedy witness walk
+     must answer True (its closures outgrow 4,096 rows within the first
+     32 barriers, so the frontier engines lose rows: PERF.md); then a
+     2,000-op, 32-process history (seed 1, 1,417 barriers) on the fast
+     engine at (1024, 2048, 4096), without and with spill: both must
+     answer True (the spill=False run keeps a copy of its fused call
+     with the most alive rows at each rung); (b) config 2 corrupted,
+     fast at (1024, 4096) and exact (``fast=False``) at 128 rows (the
+     exact update at 4,096 rows costs ~0.16 s a barrier): the two
+     verdicts (and, when False, the failing ops) must agree, and with
+     the exact CPU sweep where it decides within 100,000 configurations
+     on the prefix that ends at the fast engine's failing op; beside
+     them, the frontier of the fast engine after each 16 barriers of
+     config 2 (an exact union of 4096-row slices until a closure
+     outgrows one) and the exact and fast engines' seconds per barrier
+     at 4096 rows over 16 barriers of the corrupted copy; then the
+     corrupted bench histories 3 and 7, fast and exact at (1024, 4096):
+     both engines must refute each, at the op where the sweep of phase
+     6 does; (c) the 2,000-op history under a 30 MB
+     frontier budget, which leaves the rungs 1024 and 2048 usable, so
+     that the carried frontier spills to the host: spill rows > 0 and
+     the verdict of spill=False (True); (d) the first 32 bench histories
+     through ``batch_analysis(engine="sync", exact_escalation=(2048,))``:
+     no disagreement with phase 5's ladder nor with phase 6's sweep
+     where both decide; (e) ``mesh_kernel_analysis`` on
+     ``make_mesh(1)``, which falls back to the chunked engine: equal to
+     ``wgl.analysis(fast=True)`` and to the sweep's verdict on a bench
+     history the sweep decided.  Each run prints its seconds, chunks,
+     chunk scans and host syncs per barrier.  Last, after the counts
+     are read, the exact update's domination prune is held against a
+     dense yardstick of every pair's counts (identical masks) and timed
+     beside it at 4096 and 8192 rows, and the captured fused calls at
+     1024, 2048 and 4096 rows (one lane, P = G = 32) are held against
+     the plain versions (tolerance 0) and timed as the tables of phase 2
+     are.  No history length is cut.
 
 It prints a ``{"kernels": [...]}`` JSON line (launches from the mesh
-ladder of phase 7, times at the G = 32 shapes) and the card line, and as
-its last line ``{"ok": true, "device": {...}}``.  It exits non-zero,
+ladder of phase 7, and from phase 8 as ``single_history_launches``;
+times at the G = 32 shapes, and as ``single_<rows>_ms`` at phase 8's
+captured shapes) and the card line, and as its last line
+``{"ok": true, "device": {...}}``.  It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
 
     python3 chip_smoke.py --entry-times ROOT
@@ -90,6 +140,24 @@ CPU_SAMPLE = 48
 MESH_SHARDS = 4
 RESCUE_MAX_CONFIGS = 2_000_000
 MESH_ENGINE_LANES = 8
+
+#: Phase 8: BASELINE config 2 (10k-op etcd-style linearizable register,
+#: 32 concurrent processes), its corrupted copy's sweep budget, the
+#: spill history and its budget, and the batch stages' lanes.
+SINGLE_OPS = 10_000
+SINGLE_PROCS = 32
+SINGLE_INFO = 0.05
+SINGLE_CAPS = (1024, 4096)
+SINGLE_SWEEP_CONFIGS = CPU_MAX_CONFIGS
+GROWTH_STEPS = 4
+EXACT_COST_BARRIERS = 16
+EXACT_SINGLE_CAPS = (128,)
+SPILL_OPS = 2000
+SPILL_CAPS = (1024, 2048, 4096)
+SPILL_BUDGET_MB = 30.0
+DECIDED_BENCH = (3, 7)
+SYNC_LANES = 32
+EXACT_CAPS = (2048,)
 
 #: H100 SXM published peaks (dense): HBM bytes/s, and the 32-bit
 #: non-tensor rate used for the kernels' integer compare/hash work.
@@ -180,15 +248,15 @@ def _kernel_us(fn, iters: int = 5) -> tuple[str, dict]:
     return line, {name: us for us, name in rows}
 
 
-def _tables(capacity: int, P: int, G: int, lanes: int, dev):
-    """A [lanes, capacity*(1+P+G)] candidate table of probe rows, one
-    seed per lane."""
+def _tables(capacity: int, P: int, G: int, lanes: int, dev, W: int = 1):
+    """A [lanes, capacity*(1+P+G)] candidate table of probe rows with W
+    fok words, one seed per lane."""
     import numpy as np
     import torch
 
     from jepsen_tpu_torch.ops import hashing
 
-    rows = [hashing.probe_candidates(capacity, P, G, 1, seed=s)
+    rows = [hashing.probe_candidates(capacity, P, G, W, seed=s)
             for s in range(lanes)]
     return tuple(torch.from_numpy(np.stack([r[k] for r in rows])).to(dev)
                  for k in range(4))
@@ -249,17 +317,16 @@ def _copy_heavy(capacity: int, P: int, G: int, lanes: int, dev):
 
 
 class _Capture:
-    """Stands in for ``wide_kernel.fused_frontier_update`` during one
-    ladder run and keeps a copy of the inputs of its call with the most
-    alive candidate rows.  Calls of one shape are compared on the card
+    """Stands in for ``wide_kernel.fused_frontier_update`` during a run
+    and keeps, for each capacity, a copy of the inputs of its call with
+    the most alive candidate rows (``calls``: capacity -> [key, tables,
+    count]).  Calls of one shape are compared on the card
     (``torch.where`` on the alive counts), so the run takes no extra
     host sync; a call of a larger shape replaces the copy."""
 
     def __init__(self, wk):
         self.fn = wk.fused_frontier_update
-        self.key = None
-        self.tables = None
-        self.count = None
+        self.calls: dict = {}
 
     def __call__(self, state, fok, fcr, alive, cost, capacity, window=4,
                  n_parents=None, max_count=None, child=None):
@@ -270,17 +337,37 @@ class _Capture:
                    capacity, window, n_parents, max_count)
             cnt = alive.sum()
             args = (state, fok, fcr, alive)
-            if self.key is None or (key != self.key and state.numel()
-                                    > self.tables[0].numel()):
-                self.key, self.count = key, cnt
-                self.tables = [t.clone() for t in args]
-            elif key == self.key:
-                more = cnt > self.count
-                for t, x in zip(self.tables, args):
+            old = self.calls.get(capacity)
+            if old is None or (key != old[0] and state.numel()
+                               > old[1][0].numel()):
+                self.calls[capacity] = [key, [t.clone() for t in args], cnt]
+            elif key == old[0]:
+                more = cnt > old[2]
+                for t, x in zip(old[1], args):
                     t.copy_(torch.where(more, x, t))
-                self.count = torch.maximum(self.count, cnt)
+                old[2] = torch.maximum(old[2], cnt)
         return self.fn(state, fok, fcr, alive, cost, capacity, window=window,
                        n_parents=n_parents, max_count=max_count, child=child)
+
+
+def check_captured(wk, capture, tag, capacity=None, timed=True) -> dict:
+    """The captured fused update call at ``capacity`` (default: the
+    largest captured table), held against the plain versions and, when
+    ``timed``, timed as the bench tables are."""
+    if not capture.calls:
+        raise AssertionError(f"{tag}: the run made no fused update call")
+    if capacity is None:
+        capacity = max(capture.calls,
+                       key=lambda c: capture.calls[c][1][0].numel())
+    key, tables, count = capture.calls[capacity]
+    _s, _f, _g, capacity, window, n_parents, max_count = key
+    st = tables[0]
+    print(f"captured[{tag}]: the fused call with the most alive candidate "
+          f"rows: {int(count)} of {st.numel()} (lanes {st.shape[0]}, "
+          f"capacity {capacity}, n_parents {n_parents}, max_count "
+          f"{max_count})", flush=True)
+    return check_fused_table(tag, wk, *tables, capacity, n_parents, max_count,
+                             window, timed)
 
 
 def _max_abs_err(a, b) -> float:
@@ -377,7 +464,101 @@ def check_kernels(dev, wk) -> dict:
     for tag, C, P, G, lanes, make in shapes:
         out[tag] = check_fused_table(tag, wk, *make(C, P, G, lanes, dev), C,
                                      C, P + 1, timed=tag != "small")
+    # the geometries the bench does not reach: hash and prune instances
+    # at G = 4, 8, 64 (k_hash_keys<1>/<8>, k_prune_tiles<2>/<4>/<32>)
+    # and fok widths W = 2 and 4
+    for tag, C, P, G, W, make in (
+            ("probe-G4", 64, 8, 4, 1, _tables), ("class-G4", 64, 8, 4, 1, _class_heavy),
+            ("probe-G8", 64, 8, 8, 1, _tables), ("class-G8", 64, 8, 8, 1, _class_heavy),
+            ("probe-G64", 64, 8, 64, 1, _tables), ("class-G64", 64, 8, 64, 1, _class_heavy),
+            ("probe-P40-W2", 64, 40, 4, 2, _tables),
+            ("probe-P128-W4", 64, 128, 8, 4, _tables)):
+        tables = (make(C, P, G, 2, dev, W) if make is _tables
+                  else make(C, P, G, 2, dev))
+        check_fused_table(tag, wk, *tables, C, C, P + 1, timed=False)
+    for tag, tables in _keep_edge_tables(dev):
+        check_fused_table(tag, wk, *tables, 64, 64, 5, timed=False)
     return out
+
+
+def _cu_constant(name: str) -> int:
+    """A ``constexpr int`` of the keep mask's CUDA source."""
+    import re
+
+    from jepsen_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "wide_kernel.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _bucket_mates(n: int, G: int, need: int = 8):
+    """``need`` distinct rows (states, fok and fcr zero) whose h1 falls
+    in one bucket of an n-row table."""
+    import numpy as np
+
+    from jepsen_tpu_torch.ops import hashing
+
+    _ibits, bbits = hashing._bucket_bits(n)
+    st = np.arange(1 << 22, dtype=np.int32)
+    cols = [st, np.zeros_like(st)] + [np.zeros(st.size, np.int16)] * G
+    bucket = hashing.np_hash_rows(cols, hashing.HASH_SEED_1) >> np.uint32(32 - bbits)
+    order = np.argsort(bucket, kind="stable")
+    b = bucket[order]
+    start = np.r_[0, np.flatnonzero(b[1:] != b[:-1]) + 1]
+    size = np.diff(np.r_[start, b.size])
+    k = int(np.argmax(size >= need))
+    return st[order[start[k]:start[k] + need]]
+
+
+def _keep_edge_tables(dev):
+    """The keep mask's edge tables of tests/test_torch_keep_sort.py (G =
+    3, window 4), one lane each, on the card: (tag, tables)."""
+    import numpy as np
+    import torch
+
+    G, window = 3, 4
+
+    def probe(n, seed):
+        rng = np.random.default_rng(seed)
+        st = rng.integers(0, 64, n).astype(np.int32)
+        fo = rng.integers(0, 1 << 16, (n, 1)).astype(np.int32)
+        fc = rng.integers(0, 4, (n, G)).astype(np.int16)
+        src = rng.integers(0, n, n // 4)
+        st[: n // 4], fo[: n // 4], fc[: n // 4] = st[src], fo[src], fc[src]
+        return st, fo, fc, rng.random(n) < 0.8
+
+    out = []
+    st, fo, fc, al = probe(4096, 1)
+    pos = np.random.default_rng(2).choice(4096, 1000, replace=False)
+    st[pos], fo[pos], fc[pos], al[pos] = st[5], fo[5], fc[5], True
+    out.append(("copies-1000", (st, fo, fc, al)))
+    mates = _bucket_mates(2048, G)
+    for tag, gap in (("mates-window", window - 1), ("mates-window+1", window)):
+        st, fo, fc, al = probe(2048, 3)
+        pos = 100 + 3 * np.arange(gap + 2)
+        st[pos] = np.r_[mates[0], mates[1:gap + 1], mates[0]]
+        fo[pos], fc[pos], al[pos] = 0, 0, True
+        out.append((tag, (st, fo, fc, al)))
+    st, fo, fc, al = probe(4096, 4)
+    mates = _bucket_mates(4096, G)
+    pick = np.random.default_rng(5).integers(0, mates.size, 4096)
+    st[:], fo[:], fc[:] = mates[pick], 0, 0
+    out.append(("one-bucket", (st, fo, fc, al)))
+    st, fo, fc, al = probe(1024, 6)
+    out.append(("all-dead", (st, fo, fc, np.zeros_like(al))))
+    st, fo, fc, al = probe(1024, 7)
+    al[:] = False
+    al[700] = True
+    out.append(("one-alive", (st, fo, fc, al)))
+    out.append(("ragged", probe(_cu_constant("kTileRows") * 3 + 77, 8)))
+    out.append(("bbits22", probe(512, 9)))
+    st, fo, fc, al = probe(20000, 12)
+    pos = np.random.default_rng(13).choice(20000, 5000, replace=False)
+    src = np.array([3, 17, 400])[np.arange(5000) % 3]
+    st[pos], fo[pos], fc[pos], al[pos] = st[src], fo[src], fc[src], True
+    out.append(("large-copies", (st, fo, fc, al)))
+    return [(tag, tuple(torch.from_numpy(np.ascontiguousarray(a))[None].to(dev)
+                        for a in t)) for tag, t in out]
 
 
 def check_fused_table(tag, wk, st, fo, fc, al, C, n_parents, m, window=4,
@@ -720,6 +901,293 @@ def check_mesh_engine(batch, sharded, mesh_mod, model, hists, plain_results):
                              f"{decided} decided")
 
 
+def _single(wgl, wk, model, hist, tag, B, **kw) -> dict:
+    """One ``wgl.analysis`` run on the card, printed with its seconds,
+    chunks, chunk scans, host syncs per barrier and kernel launches."""
+    import torch
+
+    s0, k0, f0 = wgl.SCAN_SYNCS, wk.KEEP_LAUNCHES, wk.FUSED_LAUNCHES
+    t0 = time.perf_counter()
+    res = wgl.analysis(model, hist, device="cuda", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k = res.get("kernel") or {}
+    syncs = wgl.SCAN_SYNCS - s0
+    row = {"valid": res["valid?"], "seconds": seconds,
+           "chunks": k.get("chunks"), "chunk_scans": k.get("launches"),
+           "capacity": k.get("capacity"), "frontier_peak": k.get("frontier-peak"),
+           "lossy": k.get("lossy?"), "spill_rows": k.get("spill-rows"),
+           "verified_barriers": k.get("verified-barriers"),
+           "host_syncs": syncs, "syncs_per_barrier": syncs / max(1, B),
+           "keep_launches": wk.KEEP_LAUNCHES - k0,
+           "fused_launches": wk.FUSED_LAUNCHES - f0,
+           "op_index": (res.get("op") or {}).get("index")}
+    print(f"single[{tag}]: " + json.dumps(row), flush=True)
+    return res
+
+
+def _dense_kills(state, fok, fcr, alive, chunk_rows: int):
+    """A yardstick the port does not call: ``dominate``'s kill mask with
+    the counts compared over every pair of a chunk ([L, f, chunk, G]),
+    not only over the pairs of one (state, fok) class."""
+    import torch
+
+    L, f = state.shape
+    killed = torch.zeros(L, f, dtype=torch.bool, device=state.device)
+    for lo in range(0, f, chunk_rows):
+        hi = min(f, lo + chunk_rows)
+        same = ((state[:, :, None] == state[:, None, lo:hi])
+                & (fok[:, :, None, :] == fok[:, None, lo:hi, :]).all(-1)
+                & alive[:, :, None] & alive[:, None, lo:hi])
+        le = (fcr[:, :, None, :] <= fcr[:, None, lo:hi, :]).all(-1)
+        lt = (fcr[:, :, None, :] < fcr[:, None, lo:hi, :]).any(-1)
+        killed[:, lo:hi] = (same & le & lt).any(1)
+    return killed
+
+
+def check_pairwise(dev) -> None:
+    """The exact update's domination prune (``hashing.dominate``: class
+    compares over every pair of a chunk, count compares over the pairs
+    of one class) at the exact stages' buffer shapes (2C = 4096 and
+    8192 rows of G = 32, one and eight lanes, probe and class-heavy
+    rows), held against the dense yardstick (identical masks) and timed
+    beside it with CUDA events."""
+    from jepsen_tpu_torch.ops import hashing
+
+    for f in (4096, 8192):
+        for lanes in (1, 8):
+            for kind, make in (("probe", _tables), ("class-heavy", _class_heavy)):
+                st, fo, fc, al = (t[:, :f].contiguous()
+                                  for t in make(f // 2, 32, 32, lanes, dev))
+                chunk = hashing._pairwise_chunk(f, 32, lanes, 1 << 26)
+                got = hashing.dominate(st, fo, fc, al)
+                want = al & ~_dense_kills(st, fo, fc, al, chunk)
+                equal = bool((got == want).all())
+                ms = _time_ms(lambda: hashing.dominate(st, fo, fc, al), 3, 1)
+                dense = _time_ms(lambda: _dense_kills(st, fo, fc, al, chunk),
+                                 3, 1)
+                print(f"pairwise[f={f},lanes={lanes},{kind}]: dominate "
+                      f"{ms:.3f} ms per call, dense yardstick {dense:.3f} ms "
+                      f"(alive {int(al.sum())}, equal masks {equal})",
+                      flush=True)
+                if not equal:
+                    raise AssertionError("dominate differs from the dense "
+                                         "compare")
+
+
+def _growth_and_exact_cost(wgl, model, hist, bad) -> None:
+    """Phase 8's two measurements of the engines on config 2: the
+    frontier after each of the first GROWTH_STEPS ranges of 16 barriers
+    (``scan_barrier_range``, fast, 4096-row slices, spill on: an exact
+    union as long as no closure outgrows a slice), and the exact
+    engine's seconds per barrier at 4096 rows over EXACT_COST_BARRIERS
+    barriers of the corrupted copy."""
+    import numpy as np
+    import torch
+
+    p = wgl.pad_packed(wgl.pack(model, hist), B=wgl.pack(model, hist)["B"])
+    f = (np.array([p["init_state"]], np.int32),
+         np.zeros((1, p["W"]), np.int32), np.zeros((1, p["G"]), np.int16))
+    rows = []
+    for k in range(GROWTH_STEPS):
+        r = wgl.scan_barrier_range(p, f, 16 * k, 16 * (k + 1),
+                                   capacities=(SINGLE_CAPS[-1],),
+                                   chunk_barriers=16, fast=True, spill=True,
+                                   device="cuda")
+        f = r["frontier"]
+        rows.append([16 * (k + 1), int(f[0].shape[0]), r["peak"], r["lossy"]])
+        if r["lossy"] or r["failed_barrier"] is not None:
+            break
+    print(f"single[growth]: [barriers, frontier rows, peak, lost rows] "
+          f"{json.dumps(rows)}", flush=True)
+    p = wgl.pad_packed(wgl.pack(model, bad), B=wgl.pack(model, bad)["B"])
+    f = (np.array([p["init_state"]], np.int32),
+         np.zeros((1, p["W"]), np.int32), np.zeros((1, p["G"]), np.int16))
+    for fast in (True, False):
+        t0 = time.perf_counter()
+        r = wgl.scan_barrier_range(p, f, 0, EXACT_COST_BARRIERS,
+                                   capacities=(SINGLE_CAPS[-1],),
+                                   fast=fast, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"single[cost]: {'fast' if fast else 'exact'} engine at "
+              f"{SINGLE_CAPS[-1]} rows, {EXACT_COST_BARRIERS} barriers in "
+              f"{dt:.3f} s ({dt / EXACT_COST_BARRIERS:.4f} s a barrier), "
+              f"peak {r['peak']}, lost rows {r['lossy']}", flush=True)
+
+
+def run_single_history(batch, wk, wgl, sharded, mesh_mod, genhist, model,
+                       hists, ladder_results, cpu_sample) -> tuple:
+    """Phase 8: the single-history path on the card (see the module
+    docstring); returns the kernels' launch counts of the phase and the
+    measurements of its captured fused calls at each capacity."""
+    import torch
+
+    hist = genhist.valid_register_history(SINGLE_OPS, SINGLE_PROCS, seed=0,
+                                          info_rate=SINGLE_INFO)
+    bad = genhist.corrupt(hist, seed=0)
+    h2 = genhist.valid_register_history(SPILL_OPS, SINGLE_PROCS, seed=1,
+                                        info_rate=SINGLE_INFO)
+    packed = wgl.pack(model, hist)
+    B = packed["B"]
+    B2 = wgl.pack(model, h2)["B"]
+    print(f"single: {SINGLE_OPS}-op history, {SINGLE_PROCS} processes: "
+          f"B={B} P={packed['P']} G={packed['G']} W={packed['W']}; "
+          f"{SPILL_OPS}-op history: B={B2}", flush=True)
+    capture = _Capture(wk)
+    wk.reset_counts()
+    t_phase = time.perf_counter()
+    # (a) the greedy walk (a witness), the fast engine under "fused",
+    # then the default ladder; a frontier engine may lose rows on this
+    # history (its closures outgrow 4096 rows), never refute it
+    t0 = time.perf_counter()
+    g = wgl.greedy_analysis(model, hist, device="cuda")
+    print(f"single[valid-greedy]: {g['valid?']} in "
+          f"{time.perf_counter() - t0:.3f} s, {json.dumps(g.get('kernel'))}",
+          flush=True)
+    if g["valid?"] is not True:
+        raise AssertionError(f"the greedy walk answered {g['valid?']}")
+    for tag, kw in (("valid-fast-fused", dict(capacity=SINGLE_CAPS,
+                                              dedup_backend="fused")),
+                    ("valid-fast-default-ladder", {})):
+        r = _single(wgl, wk, model, hist, tag, B, fast=True, **kw)
+        if r["valid?"] is False:
+            raise AssertionError("the valid history was refuted")
+    # a history the frontier engines decide: True, and unchanged by
+    # spill (without a budget, an overflowing chunk slices and bisects)
+    # (spill=False keeps a copy of its fused calls' inputs, one per
+    # rung, to hold the kernels at this path's shapes below)
+    decided = {}
+    for tag, kw in (("decided-valid", dict(spill=False)),
+                    ("decided-valid-spill", dict(spill=True))):
+        if tag == "decided-valid":
+            wk.fused_frontier_update = capture
+        try:
+            r = _single(wgl, wk, model, h2, tag, B2, capacity=SPILL_CAPS,
+                        fast=True, **kw)
+        finally:
+            wk.fused_frontier_update = capture.fn
+        decided[tag] = r["valid?"]
+    if set(decided.values()) != {True}:
+        raise AssertionError(f"the decided history gave {decided}")
+    # why config 2 stays undecided: the exact union of the fast
+    # engine's survivors over its first barriers, in 4096-row slices
+    _growth_and_exact_cost(wgl, model, hist, bad)
+    # (b) the corrupted copy, fast then exact, against the sweep
+    fast = _single(wgl, wk, model, bad, "corrupt-fast-fused", B,
+                   capacity=SINGLE_CAPS, fast=True, dedup_backend="fused")
+    # the sweep of the prefix up to the fast engine's failing op (the
+    # whole history if it found none) runs in a worker meanwhile
+    sweep_fut = batch.confirm_pool().submit(
+        batch._confirm_worker.confirm_refutation, model, bad,
+        SINGLE_SWEEP_CONFIGS, (fast.get("kernel") or {}).get("bar-opid"))
+    exact = _single(wgl, wk, model, bad, "corrupt-exact", B,
+                    capacity=EXACT_SINGLE_CAPS, fast=False)
+    sweep = sweep_fut.result()
+    print(f"single[corrupt]: fast {fast['valid?']}, exact "
+          f"{exact['valid?']}, exact sweep {sweep['valid?']} (budget "
+          f"{SINGLE_SWEEP_CONFIGS} configurations)", flush=True)
+    _agree("corrupt", fast, exact, sweep)
+    # corrupted bench histories that both engines refute, at the same op,
+    # as the exact sweep of phase 6 does (a 32-process history's first
+    # closure outgrows even 16,384 rows, so no frontier engine refutes
+    # one: PERF.md)
+    for i in DECIDED_BENCH:
+        Bi = wgl.pack(model, hists[i])["B"]
+        f = _single(wgl, wk, model, hists[i], f"decided-corrupt-{i}-fast", Bi,
+                    capacity=SINGLE_CAPS, fast=True)
+        e = _single(wgl, wk, model, hists[i], f"decided-corrupt-{i}-exact", Bi,
+                    capacity=SINGLE_CAPS, fast=False)
+        _agree(f"decided-corrupt-{i}", f, e, cpu_sample[i])
+        if (f["valid?"], e["valid?"], cpu_sample[i]["valid?"]) != (False,) * 3:
+            raise AssertionError(f"bench history {i} was not refuted by "
+                                 "both engines and the sweep")
+    # (c) spill under a frontier budget that leaves the rungs 1024 and
+    # 2048 usable, so that the frontier outgrows the device and spills:
+    # the verdict of spill=False on the whole ladder
+    on = _single(wgl, wk, model, h2, "spill-budget", B2, capacity=SPILL_CAPS,
+                 fast=True, frontier_budget_mb=SPILL_BUDGET_MB)
+    if on["kernel"]["spill-rows"] <= 0:
+        raise AssertionError("the budgeted run did not spill")
+    if on["valid?"] != decided["decided-valid"]:
+        raise AssertionError(f"the budgeted spilled run gave {on['valid?']}, "
+                             f"spill=False {decided['decided-valid']}")
+    # (d) the sync engine and the exact stage on the bench histories
+    stats: dict = {}
+    t0 = time.perf_counter()
+    sync = batch.batch_analysis(
+        model, hists[:SYNC_LANES], capacity=CAPS, engine="sync",
+        exact_escalation=EXACT_CAPS, cpu_fallback=False,
+        dedup_backend="fused", device="cuda", stats=stats)
+    seconds = time.perf_counter() - t0
+    rows = [[i, s["valid?"], ladder_results[i]["valid?"],
+             cpu_sample[i]["valid?"] if i < len(cpu_sample) else None]
+            for i, s in enumerate(sync)]
+    disagree = [r for r in rows
+                if any(a is not None and "unknown" not in (r[1], a)
+                       and r[1] != a for a in r[2:])]
+    for rung in stats["rungs"]:
+        print("single[sync-rung]: " + json.dumps(rung), flush=True)
+    print(f"single[sync-exact]: {SYNC_LANES} bench histories in "
+          f"{seconds:.3f} s, unknowns "
+          f"{sum(1 for s in sync if s['valid?'] == 'unknown')}, "
+          f"[history, sync+exact, phase-5 ladder, sweep] disagreeing "
+          f"{json.dumps(disagree)}", flush=True)
+    if disagree:
+        raise AssertionError(f"{len(disagree)} sync/exact disagreements")
+    # (e) the mesh fallback on one shard, on a history the frontier
+    # rungs decided, held against the exact sweep (the fallback is
+    # wgl.analysis itself, so its equality with wgl.analysis is its
+    # routing, not a check of the engine)
+    k = next(i for i, r in enumerate(ladder_results)
+             if (r.get("kernel") or {}).get("capacity", 0) >= CAPS[0]
+             and i < len(cpu_sample) and cpu_sample[i]["valid?"] != "unknown")
+    mesh_res = sharded.mesh_kernel_analysis(model, hists[k], mesh_mod.make_mesh(1),
+                                            capacity=(CAPS[-1],))
+    chunked = wgl.analysis(model, hists[k], capacity=(CAPS[-1],), fast=True,
+                           dedup_backend="fused", device="cuda")
+    print(f"single[mesh-fallback]: history {k} on make_mesh(1): "
+          f"{mesh_res['valid?']}, exact sweep {cpu_sample[k]['valid?']}, "
+          f"equal to wgl.analysis(fast=True) {mesh_res == chunked}", flush=True)
+    if mesh_res != chunked or mesh_res["valid?"] != cpu_sample[k]["valid?"]:
+        raise AssertionError("the mesh fallback differs from wgl.analysis "
+                             "or from the exact sweep")
+    counts = {"keep_mask": wk.KEEP_LAUNCHES,
+              "fused_frontier_update": wk.FUSED_LAUNCHES,
+              "mesh_exchange": wk.EXCHANGE_LAUNCHES}
+    print(f"single: phase {time.perf_counter() - t_phase:.3f} s, launches "
+          f"{counts}", flush=True)
+    for name in ("keep_mask", "fused_frontier_update"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 "single-history path")
+    # the kernels at this path's own shapes (one lane, P = G = 32): its
+    # captured fused calls at each rung, held against the plain versions
+    # (after the counts are read: comparisons are not the path's launches)
+    check_pairwise(torch.device("cuda"))
+    measured = {}
+    for cap in SPILL_CAPS:
+        if cap not in capture.calls:
+            raise AssertionError(f"no fused update call at {cap} rows")
+        measured[cap] = check_captured(wk, capture, f"single-{cap}", cap)
+    return counts, measured
+
+
+def _agree(tag, fast, exact, sweep) -> None:
+    """The exact engine's verdict (and failing op, when False) equals
+    the fast engine's, and the sweep's wherever the sweep decides."""
+    if exact["valid?"] != fast["valid?"] or (
+            exact["valid?"] is False
+            and exact["op"]["index"] != fast["op"]["index"]):
+        raise AssertionError(f"{tag}: the exact and fast verdicts disagree")
+    if sweep["valid?"] != "unknown" and (
+            sweep["valid?"] != exact["valid?"]
+            or (exact["valid?"] is False
+                and sweep["op"]["index"] != exact["op"]["index"])):
+        raise AssertionError(f"{tag}: the exact verdict or failing op "
+                             "disagrees with the sweep")
+
+
 def run_ladder(batch, wk, m, genhist):
     """Phase 5: the bench ladder on the card; returns (model, results,
     histories, stats, seconds, launch counts, the ``_Capture`` of its
@@ -750,22 +1218,6 @@ def run_ladder(batch, wk, m, genhist):
     counts = {"keep_mask": wk.KEEP_LAUNCHES,
               "fused_frontier_update": wk.FUSED_LAUNCHES}
     return model, results, hists, stats, seconds, counts, capture
-
-
-def check_captured(wk, capture) -> dict:
-    """Phase 5b: the inputs of phase 5's fused update call with the most
-    alive candidate rows, held against the plain versions and timed as
-    the bench tables are."""
-    if capture.tables is None:
-        raise AssertionError("the ladder made no fused update call")
-    _s, _f, _g, capacity, window, n_parents, max_count = capture.key
-    st = capture.tables[0]
-    print(f"captured: the ladder's fused call with the most alive "
-          f"candidate rows: {int(capture.count)} of {st.numel()} "
-          f"(lanes {st.shape[0]}, capacity {capacity}, n_parents "
-          f"{n_parents}, max_count {max_count})", flush=True)
-    return check_fused_table("captured-ladder", wk, *capture.tables, capacity,
-                             n_parents, max_count, window)
 
 
 def profile_ladder(batch, model, hists) -> None:
@@ -840,6 +1292,7 @@ def main(argv=None) -> int:
     try:
         from jepsen_tpu_torch import models as m
         from jepsen_tpu_torch.ops import _build
+        from jepsen_tpu_torch.ops import wgl
         from jepsen_tpu_torch.ops import wide_kernel as wk
         from jepsen_tpu_torch.parallel import batch, sharded
         from jepsen_tpu_torch.parallel import mesh as mesh_mod
@@ -887,7 +1340,7 @@ def main(argv=None) -> int:
     for name, c in counts.items():
         if c <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    check_captured(wk, capture)
+    check_captured(wk, capture, "captured-ladder")
     del capture
 
     sample = hists[:CPU_SAMPLE]
@@ -910,6 +1363,8 @@ def main(argv=None) -> int:
 
     mesh_counts = run_mesh_ladder(batch, wk, mesh_mod, model, hists, results)
     check_mesh_engine(batch, sharded, mesh_mod, model, hists, results)
+    single_counts, single_measured = run_single_history(
+        batch, wk, wgl, sharded, mesh_mod, genhist, model, hists, results, cpu)
     if args.profile:
         profile_ladder(batch, model, hists)
     batch.shutdown_confirm_pool()
@@ -930,6 +1385,10 @@ def main(argv=None) -> int:
          "bound_ms": bench[name]["bound_ms"],
          "bound_by": bench[name]["bound_by"],
          "library_ms": bench[name].get("library_ms"),
+         "single_history_launches": single_counts[name],
+         **({f"single_{c}_ms": single_measured[c][name]["ms"]
+             for c in SPILL_CAPS} if name in single_measured[SPILL_CAPS[0]]
+            else {}),
          **{k: bench[name][k] for k in ("sort_stage_ms", "sort_library_ms")
             if k in bench[name]}}
         for name in ("keep_mask", "fused_frontier_update", "mesh_exchange")

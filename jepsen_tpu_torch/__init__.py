@@ -1,20 +1,28 @@
 """The PyTorch/CUDA port of the jepsen_tpu linearizability checker.
 
 A second package beside ``jepsen_tpu``: the batched Wing–Gong–Lowe
-capacity ladder (``parallel.batch.batch_analysis``) rebuilt on PyTorch,
-with the fused wide-stage frontier update written by hand in CUDA for
-Hopper (``ops/csrc/wide_kernel.cu``).  The JAX package is the reference
+capacity ladder (``parallel.batch.batch_analysis``) and the chunked
+single-history check (``ops.wgl.analysis``) rebuilt on PyTorch, with the
+fused wide-stage frontier update written by hand in CUDA for Hopper
+(``ops/csrc/wide_kernel.cu``).  The JAX package is the reference
 the port is tested against; this package imports neither ``jax`` nor
 anything of ``jepsen_tpu`` and keeps its own copies of the host-side
 modules it needs (history, models, the exact CPU sweep).
 
 Layer map:
 
-  parallel/batch   the capacity ladder: greedy rung, async capacity
-                   rungs with carried-frontier resume, worker-process
-                   confirmation of refutations
-  ops/wgl          packing + the batched greedy walk and async engine
-  ops/hashing      row hashes, bucket dedup, domination prune, compaction
+  parallel/batch   the capacity ladder: greedy rung, async or sync
+                   capacity rungs (carried-frontier resume on async),
+                   exact stages, worker-process confirmation of
+                   refutations, the mesh rescue
+  parallel/sharded the mesh-spanning wide stage, and its fallback
+  ops/wgl          packing, the batched greedy walk, the async and
+                   barrier-scan engines, the chunked single-history
+                   engine and its entry points
+  ops/spill        host spill of frontiers, the exact merge, crashed-op
+                   group factorization, undecidability reports
+  ops/hashing      row hashes, sort/bucket dedup, exact and one-hot
+                   domination prunes, compaction
   ops/wide_kernel  wrappers of the CUDA kernels and their plain versions
   models/tensor    elementwise torch model steps
   checker/wgl_cpu  the exact CPU configuration-set sweep (the oracle)

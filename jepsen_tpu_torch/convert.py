@@ -1,5 +1,5 @@
 """State carried across from the JAX package: packed histories, ladder
-resume snapshots and mesh-update outputs.
+resume snapshots, host frontiers and mesh-update outputs.
 
 The JAX package's ``wgl.pack`` tables and its engines' resume snapshots
 are plain numpy arrays (plus the JAX step function).  These converters
@@ -30,8 +30,9 @@ def port_step(step):
     return tmodels.REGISTRY[name].step
 
 
-def _i32_bits(a) -> np.ndarray:
-    """A uint32 bitset array as the port's int32 bit patterns."""
+def fok_bits(a) -> np.ndarray:
+    """A uint32 bitset array (a JAX frontier's fok, a slot table) as the
+    port's int32 bit patterns; int32 bit patterns pass unchanged."""
     return np.ascontiguousarray(np.asarray(a).astype(np.uint32).view(np.int32))
 
 
@@ -41,7 +42,7 @@ def from_jax_packed(packed: dict) -> dict:
     ``slot_onehot`` as int32 bit patterns."""
     out = dict(packed)
     out["step"] = port_step(packed["step"])
-    out["slot_onehot"] = _i32_bits(packed["slot_onehot"])
+    out["slot_onehot"] = fok_bits(packed["slot_onehot"])
     out["slot_lane"] = np.asarray(packed["slot_lane"], np.int32)
     return out
 
@@ -61,7 +62,7 @@ def from_jax_mesh(out, devices: int):
     fp = fp.astype(np.int64).reshape(-1, 3)
     return (
         shards(state.astype(np.int32)),
-        shards(_i32_bits(fok)),
+        shards(fok_bits(fok)),
         shards(fcr.astype(np.int16)),
         shards(alive.astype(bool)),
         bool(ovf.ravel()[0]),
@@ -79,7 +80,7 @@ def from_jax_resume(snap):
     return (
         int(bs) if bs.ndim == 0 else bs.astype(np.int32),
         np.asarray(state, np.int32),
-        _i32_bits(fok),
+        fok_bits(fok),
         np.asarray(fcr, np.int16),
         np.asarray(alive, bool),
     )

@@ -1,9 +1,9 @@
 """Row hashing, dedup, domination pruning and compaction of the frontier.
 
-The port of the JAX package's ``ops/hashing.py`` main-path pieces.  The
-frontier is a struct-of-arrays table with a leading lane axis (the JAX
-package vmaps one lane; here every function takes ``[L, n]`` tables, and
-a 1-D table is treated as one lane):
+The port of the JAX package's ``ops/hashing.py``.  The frontier is a
+struct-of-arrays table with a leading lane axis (the JAX package vmaps
+one lane; here every function takes ``[L, n]`` tables, and a 1-D table
+is treated as one lane):
 
   state [L, n] int32 · fok [L, n, W] int32 (the uint32 fired-open-op
   bitsets, carried as int32 bit patterns) · fcr [L, n, G] int16 (fired
@@ -14,20 +14,38 @@ lanes are carried as int64 tensors masked to ``0xFFFFFFFF``; products
 are split into 16-bit halves so no int64 product overflows.  Hashes,
 keep masks and fingerprints are bit-identical to the JAX package's.
 
-Two dedup backends (``dedup_backend``):
+Two frontier updates:
 
+  * ``frontier_update_fast`` — the fast engines' update: hash dedup
+    (kills need both 32-bit hash lanes equal), the one-hot matmul
+    domination prune on a 2C buffer, cumsum-rank compaction.
+  * ``frontier_update`` — the exact engine's update: rows sorted by
+    their (state, fok) class hash and cost, windowed content compares,
+    then an exact pairwise domination pass (``dominate``); every kill is
+    content-decided.
+
+Three dedup backends (``dedup_backend``):
+
+  * "sort"   — one stable single-key sort of the hash lanes
+    (``_keep_sort``); in ``frontier_update``, the 4-key sort by
+    (dead, class hash, cost) done as three stable ``torch.sort`` passes
+    from the least significant key, which is the JAX package's order
+    exactly.
   * "bucket" — the packed radix bucket partition of ``_keep_bucket``
     (one single-key sort of ``[dead | bucket | index]``, windowed 64-bit
-    hash kills), the one-hot matmul domination prune on the 2C buffer
-    and cumsum-rank compaction, as plain torch ops.
+    hash kills); in ``frontier_update``, the same partition by the class
+    hash.  An infeasible geometry (``bucket_feasible``) routes to "sort".
   * "fused"  — the port's name for the JAX package's "pallas" backend:
     the fused wide-stage update of ``ops.wide_kernel`` (hand-written
-    CUDA on the card), routed on wide rungs (``fused_feasible``);
-    narrower rungs take the bucket path, as in the JAX package.  It is
-    the default, because it is the configuration this port carries.
+    CUDA on the card), routed on wide rungs (``fused_feasible``); other
+    rounds fall down the bucket -> sort ladder, as in the JAX package,
+    and ``frontier_update`` rides the bucket partition.  It is the
+    default, because it is the configuration this port carries.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -45,14 +63,14 @@ FP_SEED_1 = 0xFEED_0001
 FP_SEED_2 = 0xFEED_0002
 
 #: Recognized dedup backends (see the module docstring).
-DEDUP_BACKENDS = ("bucket", "fused")
+DEDUP_BACKENDS = ("sort", "bucket", "fused")
 
 #: The backend when the caller names none.
 DEDUP_BACKEND = "fused"
 
 #: Fewer bucket bits than this and the radix partition degenerates into
-#: a handful of giant buckets; such tables are refused (they need more
-#: than 2^25 candidate rows).
+#: a handful of giant buckets; such tables (more than 2^25 candidate
+#: rows) route to the sort path.
 BUCKET_MIN_BITS = 6
 
 #: One-hot plane count for the matmul prune; counts at or above the last
@@ -139,6 +157,63 @@ def row_hashes(state, fok, fcr):
     """The two 32-bit dedup hash lanes of every row."""
     cols = row_columns(state, fok, fcr)
     return hash_rows(cols, HASH_SEED_1), hash_rows(cols, HASH_SEED_2)
+
+
+def np_mix32(x) -> np.ndarray:
+    """Host-side mirror of ``mix32`` in numpy uint32: bit-identical on
+    the same input, so hashes on either side of a device-to-host spill
+    agree (the spill merge's bucket keys are the class hashes)."""
+    x = np.asarray(x).astype(np.uint32)
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(_C1)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(_C2)
+    x = x ^ (x >> np.uint32(16))
+    return x
+
+
+def np_hash_rows(columns, seed: int) -> np.ndarray:
+    """Host-side mirror of ``hash_rows`` (same constants, same fold
+    order), as numpy uint32."""
+    cols = [np.asarray(c) for c in columns]
+    h = np.full(cols[0].shape, np.uint32((seed ^ _GOLDEN) & MASK32), np.uint32)
+    for col in cols:
+        h = np_mix32(h ^ col.astype(np.uint32))
+    return h
+
+
+def np_class_hash(state, fok) -> tuple[np.ndarray, np.ndarray]:
+    """The two 32-bit lanes of a host frontier's (state, fok) class hash:
+    identical classes always share both lanes, so the pair is the bucket
+    key of the host-spill merge (``ops.spill.merge_frontiers``).  fok
+    may be uint32 or the port's int32 bit patterns."""
+    state = np.asarray(state)
+    fok = np.asarray(fok)
+    cols = [state] + [fok[:, k] for k in range(fok.shape[1])]
+    return np_hash_rows(cols, HASH_SEED_1), np_hash_rows(cols, HASH_SEED_2)
+
+
+def _keep_sort(h1, h2, alive, window: int):
+    """Hash-dup keep mask, sort formulation (the JAX package's
+    ``_keep_sort``, lane-batched): one stable single-key sort by h1 (dead
+    rows keyed ``0xFFFFFFFF``, after every alive row of a smaller key);
+    a row is a dup when one of its ``window`` sorted predecessors is
+    alive with both hash lanes equal.  ``jax.lax.sort`` is stable, so
+    ties keep candidate order and the mask is bit-identical.  Returns
+    the keep mask in candidate order."""
+    n = h1.shape[-1]
+    key = torch.where(alive, h1, MASK32)
+    order = torch.sort(key, dim=-1, stable=True).indices
+    k1 = key.gather(-1, order)
+    k2 = h2.gather(-1, order)
+    al = alive.gather(-1, order)
+    pos = torch.arange(n, device=h1.device)
+    dup = torch.zeros_like(al)
+    for k in range(1, window + 1):
+        dup = dup | ((k1 == torch.roll(k1, k, -1)) & (k2 == torch.roll(k2, k, -1))
+                     & torch.roll(al, k, -1) & (pos >= k))
+    keep = al & ~dup
+    return torch.zeros_like(keep).scatter(-1, order, keep)
 
 
 def _keep_bucket(h1, h2, alive, window: int):
@@ -243,37 +318,37 @@ def frontier_update_fast(
     dedup_backend: str = "fused",
 ):
     """Frontier dedup, domination prune and truncation for one engine
-    tick (the JAX package's ``frontier_update_fast``, lane-batched).
+    round (the JAX package's ``frontier_update_fast``, lane-batched).
 
       1. hash each row to 64 bits (two uint32 lanes);
-      2. bucket dedup (``_keep_bucket``): a row dies when an alive
-         earlier copy within ``window`` bucket-mates has both lanes
-         equal, so survivors are the first copy in candidate order;
+      2. dedup: a row dies when an alive earlier copy within ``window``
+         sorted neighbours has both lanes equal (``_keep_bucket`` under
+         "bucket"/"fused", whose survivors are the first copy in
+         candidate order; ``_keep_sort`` under "sort" or when the bucket
+         geometry is infeasible);
       3. survivors compact in candidate order into a 2·capacity buffer,
-         which is domination-pruned (``exact_prune_mxu``);
+         which is domination-pruned (``exact_prune_mxu`` when
+         ``max_count`` bounds the counts, else ``exact_prune``);
       4. the antichain compacts to ``capacity`` by cumsum rank.
 
     ``cost`` is accepted for signature parity and unused: candidate
-    order already approximates cheapest-first.  ``max_count`` (the
-    static bound on any count, callers pass the mover-table size + 1)
-    is required: the prune is the one-hot matmul.  ``n_parents``: the
-    first ``n_parents`` candidate rows are the previous frontier, so the
-    returned ``child`` marks survivors that came from an expansion.
+    order already approximates cheapest-first.  ``max_count`` is the
+    static bound on any count (callers pass the mover-table size + 1).
+    ``n_parents``: the first ``n_parents`` candidate rows are the
+    previous frontier, so the returned ``child`` marks survivors that
+    came from an expansion.
 
     ``dedup_backend="fused"`` routes feasible wide geometry
     (``wide_kernel.fused_feasible``) to the fused update, whose alive
     rows, positions, overflow flag, fingerprint and ``child & alive``
-    are bit-identical to this path's; its dead rows are zeros where this
-    path leaves row-0 copies.
+    are bit-identical to the bucket path's; its dead rows are zeros
+    where this path leaves row-0 copies.
 
     Returns (state', fok', fcr', alive', overflowed, fp, child): fp is
     [L, 3] int64 (uint32 values), overflowed [L] bool.
     """
     if dedup_backend not in DEDUP_BACKENDS:
         raise ValueError(f"unknown dedup backend {dedup_backend!r}")
-    if max_count is None:
-        raise ValueError("frontier_update_fast needs max_count (the prune "
-                         "is the one-hot matmul)")
     (state, fok, fcr, alive), single = _lanes(state, fok, fcr, alive)
     L, n = state.shape
     if dedup_backend == "fused":
@@ -285,11 +360,12 @@ def frontier_update_fast(
                 n_parents=n_parents, max_count=max_count,
             )
             return tuple(o[0] for o in out) if single else out
-    if not bucket_feasible(n):
-        raise ValueError(f"bucket geometry infeasible at {n} candidate rows")
     dev = state.device
     h1, h2 = row_hashes(state, fok, fcr)
-    keep_orig, _bovf = _keep_bucket(h1, h2, alive, window)
+    if dedup_backend in ("bucket", "fused") and bucket_feasible(n):
+        keep_orig, _bovf = _keep_bucket(h1, h2, alive, window)
+    else:
+        keep_orig = _keep_sort(h1, h2, alive, window)
     Cb = min(2 * capacity, n)
     iota = torch.arange(n, device=dev)
     rank = torch.cumsum(keep_orig, -1) - 1
@@ -303,7 +379,10 @@ def frontier_update_fast(
     cb_iota = torch.arange(Cb, device=dev)
     balive = cb_iota < torch.clamp(n_keep0, max=Cb)[:, None]
     spill = n_keep0 > Cb
-    balive = exact_prune_mxu(bst, bfo, bfc, balive, max_count)
+    if max_count is not None:
+        balive = exact_prune_mxu(bst, bfo, bfc, balive, max_count)
+    else:
+        balive = exact_prune(bst, bfo, bfc, balive)
     rank2 = torch.cumsum(balive, -1) - 1
     n_keep = torch.clamp(rank2[:, -1] + 1, min=0)
     pos3 = torch.where(balive, rank2, capacity + cb_iota)
@@ -324,21 +403,213 @@ def frontier_update_fast(
     return tuple(o[0] for o in out) if single else out
 
 
-def keep_stage(state, fok, fcr, alive, window: int = 4,
-               dedup_backend: str = "fused"):
-    """Just the dedup stage of ``frontier_update_fast`` (row hash,
-    partition, windowed kills): the keep mask in candidate order, from
-    the standalone keep-mask kernel under "fused" or ``_keep_bucket``
-    under "bucket" (the JAX package's ``_dedup_stage``)."""
+def _lex_order(keys):
+    """The permutation that sorts ``[L, n]`` rows by the int64 key
+    tensors ``keys`` (most significant first), ties in index order: one
+    stable sort per key, from the least significant, which is the order
+    of ``jax.lax.sort`` with ``num_keys`` keys and an index payload."""
+    perm = None
+    for k in reversed(keys):
+        if perm is not None:
+            k = k.gather(-1, perm)
+        step = torch.sort(k, dim=-1, stable=True).indices
+        perm = step if perm is None else perm.gather(-1, step)
+    return perm
+
+
+def frontier_update(
+    state, fok, fcr, alive, cost, capacity: int, window: int = 16,
+    dedup_backend: str = "fused",
+):
+    """One-pass exact frontier maintenance: dedup, domination and
+    truncation (the JAX package's ``frontier_update``, lane-batched).
+
+    Rows sort by (dead, class hash of (state, fok), cost), index-stable,
+    so rows of one class lie together, cheapest first; a row dies when
+    one of its ``window`` sorted predecessors is alive with the same
+    exact (state, fok) and pointwise <= counts.  Under "bucket" and
+    "fused" the first sort is the packed radix partition by the top bits
+    of the class hash (class-mates share a bucket; rows stay in
+    candidate order within it); an infeasible geometry takes the sort.
+    The survivors, cheapest first, fill a 2·capacity buffer that
+    ``dominate`` prunes exactly; the antichain truncates to capacity,
+    cheapest first.  Every kill compares content, so this engine's
+    refutations are final under every backend.
+
+    ``cost`` [L, n]: the truncation priority (fired ops per row).
+    Returns (state', fok', fcr', alive', overflowed, fp): overflowed
+    when the buffer spilled or the antichain exceeded capacity (loss);
+    fp the order-insensitive fingerprint, [L, 3] int64.
+    """
     if dedup_backend not in DEDUP_BACKENDS:
         raise ValueError(f"unknown dedup backend {dedup_backend!r}")
-    if dedup_backend == "fused":
+    (state, fok, fcr, alive, cost), single = _lanes(state, fok, fcr, alive,
+                                                    cost)
+    L, n = state.shape
+    dev = state.device
+    class_cols = [state] + [fok[..., k] for k in range(fok.shape[-1])]
+    ch1 = hash_rows(class_cols, HASH_SEED_1)
+    ch2 = hash_rows(class_cols, HASH_SEED_2)
+    iota = torch.arange(n, device=dev)
+    dead = (~alive).to(torch.int64)
+    if dedup_backend in ("bucket", "fused") and bucket_feasible(n):
+        ibits, bbits = _bucket_bits(n)
+        packed = (dead << 31) | ((ch1 >> (32 - bbits)) << ibits) | iota
+        spacked = torch.sort(packed, dim=-1).values
+        al = spacked < (1 << 31)
+        sidx = spacked & ((1 << ibits) - 1)
+    else:
+        sidx = _lex_order([(dead << 32) | ch1, ch2, u32(cost)])
+        al = alive.gather(-1, sidx)
+    st = state.gather(-1, sidx)
+    fo = _gather_rows(fok, sidx)
+    fc = _gather_rows(fcr, sidx)
+    killed = torch.zeros_like(al)
+    for k in range(1, window + 1):
+        pfo = torch.roll(fo, k, 1)
+        pfc = torch.roll(fc, k, 1)
+        same = ((torch.roll(st, k, 1) == st) & (pfo == fo).all(-1)
+                & torch.roll(al, k, 1) & (iota >= k))
+        killed = killed | (same & (pfc <= fc).all(-1))
+    alive_d = al & ~killed
+    n_w = alive_d.sum(-1)
+    b2 = min(2 * capacity, n)
+    sc2 = u32(cost).gather(-1, sidx)
+    bsel = _lex_order([(~alive_d).to(torch.int64), sc2])[:, :b2]
+    bst = st.gather(-1, bsel)
+    bfo = _gather_rows(fo, bsel)
+    bfc = _gather_rows(fc, bsel)
+    bcost = sc2.gather(-1, bsel)
+    balive = (torch.arange(b2, device=dev)
+              < torch.clamp(n_w, max=b2)[:, None])
+    balive = dominate(bst, bfo, bfc, balive)
+    n_x = balive.sum(-1)
+    keep = _lex_order([(~balive).to(torch.int64), bcost])[:, :capacity]
+    kst = bst.gather(-1, keep)
+    kfo = _gather_rows(bfo, keep)
+    kfc = _gather_rows(bfc, keep)
+    new_alive = (torch.arange(capacity, device=dev)
+                 < torch.clamp(n_x, max=capacity)[:, None])
+    overflowed = (n_w > b2) | (n_x > capacity)
+    fp = _fingerprint(kst, kfo, kfc, new_alive)
+    out = (kst, kfo, kfc, new_alive, overflowed, fp)
+    return tuple(o[0] for o in out) if single else out
+
+
+def _pairwise_chunk(f: int, g: int, lanes: int, elements: int) -> int:
+    """Killed-axis chunk of the exact pairwise passes: keeps their
+    [L, f, chunk, G] intermediates near ``elements``."""
+    return min(f, max(16, elements // max(1, lanes * f * g)))
+
+
+def _pairwise_kills(state, fok, fcr, alive, ties: bool, chunk_rows: int):
+    """[L, f] mask of rows killed by an alive row of the same (state,
+    fok) with pointwise <= counts that is strictly smaller somewhere, or
+    (``ties``) equal and earlier in the table; chunked over the killed
+    axis.  The class compare runs over every pair of a chunk, the count
+    compares only over the pairs of one class: on an H100 that is faster
+    than comparing the counts of every pair (``chip_smoke.py``'s
+    ``pairwise`` lines; PERF.md)."""
+    L, f = state.shape
+    if chunk_rows <= 0:
+        # the JAX package's 4M-element bound on the CPU; on the card a
+        # 64M-element chunk keeps the host's loop short
+        chunk_rows = _pairwise_chunk(
+            f, fcr.shape[-1], L, 1 << (22 if state.device.type == "cpu" else 26))
+    killed = torch.zeros(L, f, dtype=torch.bool, device=state.device)
+    for lo in range(0, f, chunk_rows):
+        hi = min(f, lo + chunk_rows)
+        same = ((state[:, :, None] == state[:, None, lo:hi])
+                & (fok[:, :, None, :] == fok[:, None, lo:hi, :]).all(-1)
+                & alive[:, :, None] & alive[:, None, lo:hi])
+        ln, i, j = same.nonzero(as_tuple=True)
+        j = j + lo
+        fi, fj = fcr[ln, i], fcr[ln, j]
+        lt = (fi < fj).any(-1)
+        if ties:
+            lt = lt | (i < j)
+        dom = (fi <= fj).all(-1) & lt
+        killed[ln[dom], j[dom]] = True
+    return killed
+
+
+def exact_prune(state, fok, fcr, alive, chunk_rows: int = 0):
+    """Kill duplicate and dominated rows, exactly (the JAX package's
+    ``exact_prune``): row j dies when an alive row i of the same (state,
+    fok) has pointwise <= counts and is strictly smaller somewhere or
+    earlier in the table (ties keep the first copy).  Chunked over the
+    killed axis to bound the [L, f, chunk, G] intermediates."""
+    (state, fok, fcr, alive), single = _lanes(state, fok, fcr, alive)
+    out = alive & ~_pairwise_kills(state, fok, fcr, alive, True, chunk_rows)
+    return out[0] if single else out
+
+
+def dominate(state, fok, fcr, alive, chunk_rows: int = 0):
+    """Kill dominated rows (the JAX package's ``dominate``): row j dies
+    when an alive row i of the same (state, fok) fired pointwise <= and
+    not equal crashed counts.  Duplicates both stay.  Chunked over the
+    dominated axis."""
+    (state, fok, fcr, alive), single = _lanes(state, fok, fcr, alive)
+    out = alive & ~_pairwise_kills(state, fok, fcr, alive, False, chunk_rows)
+    return out[0] if single else out
+
+
+def _dedup_stage(state, fok, fcr, alive, window: int = 4,
+                 dedup_backend: str = "fused"):
+    """Just the dedup stage of ``frontier_update_fast`` (row hash,
+    partition, windowed kills): the keep mask in candidate order.  Under
+    "fused" the standalone keep-mask kernel (``wide_kernel.keep_mask``,
+    bit-identical to ``_keep_bucket``); then the bucket -> sort ladder,
+    as in the JAX package."""
+    if dedup_backend not in DEDUP_BACKENDS:
+        raise ValueError(f"unknown dedup backend {dedup_backend!r}")
+    n = state.shape[-1]
+    if dedup_backend == "fused" and bucket_feasible(n):
         from jepsen_tpu_torch.ops import wide_kernel
 
         keep, _ovf = wide_kernel.keep_mask(state, fok, fcr, alive, window)
         return keep
+    (state, fok, fcr, alive), single = _lanes(state, fok, fcr, alive)
     h1, h2 = row_hashes(state, fok, fcr)
-    return _keep_bucket(h1, h2, alive, window)[0]
+    if dedup_backend == "bucket" and bucket_feasible(n):
+        keep = _keep_bucket(h1, h2, alive, window)[0]
+    else:
+        keep = _keep_sort(h1, h2, alive, window)
+    return keep[0] if single else keep
+
+
+def dedup_round_probe(capacity: int, P: int, G: int, W: int = 1,
+                      backends=DEDUP_BACKENDS, rounds: int = 5,
+                      seed: int = 0, device=None) -> dict:
+    """Time the dedup stage per round at a rung's candidate shape
+    (``probe_candidates``), one backend at a time: ``{backend: mean
+    seconds per round}``.  On the card the rounds run between CUDA
+    events after one untimed call; on the CPU they are timed by the host
+    clock.  ``device``: the card unless the caller asks for "cpu"."""
+    from jepsen_tpu_torch._platform import resolve_device
+
+    dev = resolve_device(device)
+    tables = tuple(torch.from_numpy(a).to(dev)
+                   for a in probe_candidates(capacity, P, G, W, seed))
+    rounds = max(1, int(rounds))
+    out: dict = {}
+    for b in backends:
+        _dedup_stage(*tables, 4, b)
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(rounds):
+                _dedup_stage(*tables, 4, b)
+            end.record()
+            end.synchronize()
+            out[b] = start.elapsed_time(end) / 1e3 / rounds
+        else:
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                _dedup_stage(*tables, 4, b)
+            out[b] = (time.perf_counter() - t0) / rounds
+    return out
 
 
 def probe_candidates(capacity: int, P: int, G: int, W: int = 1, seed: int = 0):

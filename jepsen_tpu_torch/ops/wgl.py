@@ -1,11 +1,15 @@
 """Frontier-parallel Wing–Gong–Lowe linearizability search, in torch.
 
-The port of the JAX package's ``ops/wgl.py`` main-path engines: packing
-histories into barrier tables, the batched greedy witness walk, and the
-lane-asynchronous frontier engine.  The JAX engines are ``jit(vmap(...))``
-of a ``lax.scan`` / ``lax.while_loop``; here the lane axis is written out
-(every tensor is ``[L, ...]``) and the loops are host loops over batched
-tensor ops.
+The port of the JAX package's ``ops/wgl.py``: packing histories into
+barrier tables, the batched greedy witness walk, the lane-asynchronous
+frontier engine, the barrier-scan engine (fast and exact), the chunked
+single-history engine with host spill, and the single-history entry
+points (``analysis``, ``greedy_analysis``, ``analysis_async``).  The JAX
+engines are ``jit(vmap(...))`` of a ``lax.scan`` / ``lax.while_loop``;
+here the lane axis is written out (every tensor is ``[L, ...]``) and the
+loops are host loops over batched tensor ops, with each lane's update
+masked by its own loop condition, as ``vmap`` of a ``while_loop`` masks
+it.
 
 Data layout (F = frontier capacity, P = process slots, G = crashed-op
 groups, W = ⌈P/32⌉ bitset lanes, B = barriers):
@@ -27,16 +31,24 @@ confirms every refutation on the exact CPU sweep.  Anything else is
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import models as m
+from jepsen_tpu_torch._platform import resolve_device
+from jepsen_tpu_torch.convert import fok_bits
 from jepsen_tpu_torch.checker import wgl_cpu
 from jepsen_tpu_torch.models import tensor as tmodels
-from jepsen_tpu_torch.ops.hashing import frontier_update_fast
+from jepsen_tpu_torch.ops import spill as spill_mod
+from jepsen_tpu_torch.ops.hashing import (
+    MASK32,
+    frontier_update,
+    frontier_update_fast,
+    resolve_dedup_backend,
+)
 
 
 class NotTensorizable(Exception):
@@ -560,3 +572,857 @@ def pad_resume(resume, F: int, W: int, G: int):
         out_al[:] = False
         out_al[: len(sel)] = True
     return int(bsnap), out_st, out_fo, out_fc, out_al
+
+
+# ---------------------------------------------------------------------------
+# The barrier-scan engine ("sync"; fast and exact)
+# ---------------------------------------------------------------------------
+
+#: Host reads of the barrier-scan engine and the chunked engine (the
+#: round flags "does any lane still close?", the active-barrier table,
+#: each slice's verdict scalars and alive rows), counted so that a run
+#: can report its host syncs per barrier.
+SCAN_SYNCS = 0
+
+
+def _popcount32(x):
+    """Set bits per 32-bit word of int32 bit patterns, as int64."""
+    x = x.to(torch.int64) & MASK32
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & MASK32) >> 24
+
+
+def _candidate_cost(cat_fok, cat_fcr):
+    """The exact update's truncation priority of each candidate row:
+    fired open ops plus fired crashed ops (the JAX package's ``cost``
+    column of ``expand_candidates``), int32."""
+    return (_popcount32(cat_fok).sum(-1)
+            + cat_fcr.sum(-1, dtype=torch.int64)).to(torch.int32)
+
+
+def _scan_chunk_core(step, F: int, R: int, fast: bool, state0, fok0, fcr0,
+                     alive0, tables, slot_lane, slot_onehot,
+                     dedup: str = "fused"):
+    """Scan lane-batched frontiers over a chunk of barriers from explicit
+    frontiers and return the final ones (the JAX package's
+    ``_scan_chunk_core`` under vmap).
+
+    Per barrier, closure rounds run while a lane still grows, up to
+    ``R``: a round is ``expand_candidates`` and then the frontier update
+    (``frontier_update_fast`` when ``fast``, whose no-growth signal ends
+    the closure; else the exact ``frontier_update``, whose fingerprint
+    fixpoint ends it).  Each lane's round is masked by its own
+    ``(r < R) & changed`` and by ``done`` (failed earlier, or an inactive
+    barrier), so a lane that reached its fixpoint keeps its frontier
+    while others close further, as the vmapped ``while_loop`` keeps it.
+    Then the barrier's return filter applies: rows that fired the
+    returning op survive and its slot bit retires.  A closure still
+    growing after ``R`` rounds is loss.
+
+    ``tables``: the lane tables (``TABLE_ORDER`` and ``bar_active``,
+    ``[L, Bc, ...]``).  The loop reads "does any lane still close?" back
+    once a round (``SCAN_SYNCS``); the first round of a barrier runs
+    unpolled except every ``POLL_EVERY`` barriers, since a round on a
+    finished lane changes nothing.
+
+    Returns (state, fok, fcr, alive, failed_at, lossy, peak): failed_at
+    the chunk-local barrier where a lane's frontier died (-1 never);
+    lossy and peak (the largest post-filter frontier) cover this chunk.
+    """
+    global SCAN_SYNCS
+    dev = state0.device
+    L = state0.shape[0]
+    Bc = tables["bar_f"].shape[1]
+    P = tables["mov_f"].shape[2]
+    G = tables["grp_f"].shape[1]
+    W = fok0.shape[2]
+    eye_g = torch.eye(G, dtype=torch.int16, device=dev)
+    slot_mask = slot_onehot.sum(1, dtype=torch.int32)
+    w_iota = torch.arange(W, device=dev)
+    grp = (tables["grp_f"], tables["grp_v1"], tables["grp_v2"])
+    active = tables["bar_active"]
+    any_active = active.any(0).tolist()
+    SCAN_SYNCS += 1
+    state, fok, fcr, alive = state0, fok0, fcr0, alive0
+    failed_at = torch.full((L,), -1, dtype=torch.int32, device=dev)
+    lossy = torch.zeros(L, dtype=torch.bool, device=dev)
+    peak = torch.clamp(alive0.sum(1), min=1).to(torch.int32)
+    fp0 = torch.full((L, 3), MASK32, dtype=torch.int64, device=dev)
+    polled = 0
+    for b in range(Bc):
+        if not any_active[b]:
+            continue
+        done = (failed_at >= 0) | ~active[:, b]
+        xmov = [tables[k][:, b] for k in ("mov_f", "mov_v1", "mov_v2", "mov_open")]
+        xgrp_open = tables["grp_open"][:, b]
+        s_w, fo_w, fc_w, a_w = state, fok, fcr, alive
+        run = ~done  # lanes whose closure goes on: (r < R) & changed
+        lossy_w = lossy
+        fp = fp0
+        for r in range(R):
+            if r > 0 or polled % POLL_EVERY == 0:
+                SCAN_SYNCS += 1
+                if not bool(run.any()):
+                    break
+            if r == 0:
+                polled += 1
+            cat = expand_candidates(
+                step, eye_g, slot_lane, slot_mask, slot_onehot,
+                s_w, fo_w, fc_w, a_w, *xmov, *grp, xgrp_open,
+            )
+            if fast:
+                s2, fo2, fc2, a2, ovf, _fp, child = frontier_update_fast(
+                    *cat[:4], None, F, n_parents=F, max_count=P + 1,
+                    dedup_backend=dedup,
+                )
+                grew = (a2 & child).any(1)
+            else:
+                s2, fo2, fc2, a2, ovf, fp2 = frontier_update(
+                    *cat[:4], _candidate_cost(cat[1], cat[2]), F,
+                    dedup_backend=dedup,
+                )
+                grew = ~(fp2 == fp).all(1)
+                fp = torch.where(run[:, None], fp2, fp)
+            s_w = torch.where(run[:, None], s2, s_w)
+            fo_w = torch.where(run[:, None, None], fo2, fo_w)
+            fc_w = torch.where(run[:, None, None], fc2, fc_w)
+            a_w = torch.where(run[:, None], a2, a_w)
+            lossy_w = lossy_w | (ovf & run)
+            run = run & grew
+        # a lane still growing after R rounds ran out of closure rounds
+        lossy_w = lossy_w | run
+        bslot = tables["bar_slot"][:, b]
+        lane = (bslot // 32).long()
+        bit = _bit(bslot)
+        lane_vals = fo_w.gather(2, lane[:, None, None].expand(L, F, 1))[:, :, 0]
+        a3 = a_w & ((lane_vals & bit[:, None]) != 0)
+        clear = torch.where(w_iota == lane[:, None], bit[:, None], 0)
+        fo3 = fo_w & ~clear[:, None, :]
+        keep = done[:, None]
+        state = torch.where(keep, state, s_w)
+        fok = torch.where(keep[:, :, None], fok, fo3)
+        fcr = torch.where(keep[:, :, None], fcr, fc_w)
+        alive = torch.where(keep, alive, a3)
+        failed_at = torch.where(~done & ~a3.any(1), b, failed_at)
+        lossy = torch.where(done, lossy, lossy_w)
+        peak = torch.where(done, peak,
+                           torch.maximum(peak, a3.sum(1).to(torch.int32)))
+    return state, fok, fcr, alive, failed_at, lossy, peak
+
+
+def _run_core(step, F: int, R: int, fast: bool, init_state, tables,
+              slot_lane, slot_onehot, dedup: str = "fused"):
+    """Scan lane-batched histories over all barriers from each lane's
+    single initial configuration.  Returns (any_alive, failed_at, lossy,
+    peak), each [L]."""
+    dev = init_state.device
+    L = init_state.shape[0]
+    W = slot_onehot.shape[1]
+    G = tables["grp_f"].shape[1]
+    state0 = init_state.to(torch.int32)[:, None].expand(L, F).contiguous()
+    fok0 = torch.zeros(L, F, W, dtype=torch.int32, device=dev)
+    fcr0 = torch.zeros(L, F, G, dtype=torch.int16, device=dev)
+    alive0 = torch.zeros(L, F, dtype=torch.bool, device=dev)
+    alive0[:, 0] = True
+    _s, _fo, _fc, alive, failed_at, lossy, peak = _scan_chunk_core(
+        step, F, R, fast, state0, fok0, fcr0, alive0, tables, slot_lane,
+        slot_onehot, dedup=dedup)
+    return alive.any(1), failed_at, lossy, peak
+
+
+def batched_runner(step, F: int, R: int, init_state, tables, slot_lane,
+                   slot_onehot, dedup: str = "fused"):
+    """The "sync" engine: ``_run_core`` with the fast hash-dedup update
+    over a stack of same-shape packed histories (the JAX package's
+    vmapped runner, called directly).  Its refutations are hash-decided,
+    so callers confirm them."""
+    return _run_core(step, F, R, True, init_state, tables, slot_lane,
+                     slot_onehot, dedup=dedup)
+
+
+def exact_batched_runner(step, F: int, R: int, init_state, tables, slot_lane,
+                         slot_onehot, dedup: str = "fused"):
+    """``_run_core`` with the exact update (content compares and exact
+    domination under every backend): its refutations are final."""
+    return _run_core(step, F, R, False, init_state, tables, slot_lane,
+                     slot_onehot, dedup=dedup)
+
+
+def device_buffer_bytes(device=None) -> int | None:
+    """Bytes the caching allocator holds in live tensors on ``device``
+    (a CUDA device), or None on the CPU, which keeps no such count."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return int(torch.cuda.memory_allocated(dev))
+
+
+def _history_tables(packed: dict, device):
+    """One packed history's engine tables on ``device`` with a lane axis
+    of one (``TABLE_ORDER`` and ``bar_active``), and its slot tables."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)[None]
+
+    cols = (list(packed["bar"]) + list(packed["mov"]) + list(packed["grp"])
+            + [packed["grp_open"]])
+    tables = {k: t(a) for k, a in zip(TABLE_ORDER, cols)}
+    tables["bar_active"] = t(packed["bar_active"])
+    slot_lane = torch.from_numpy(np.asarray(packed["slot_lane"])).long().to(device)
+    slot_onehot = torch.from_numpy(
+        fok_bits(packed["slot_onehot"])).to(device)
+    return tables, slot_lane, slot_onehot
+
+
+def _chunk_tables(tables: dict, lo: int, hi: int) -> dict:
+    """The barriers [lo, hi) of a history's tables (views)."""
+    per_group = ("grp_f", "grp_v1", "grp_v2")
+    return {k: v if k in per_group else v[:, lo:hi] for k, v in tables.items()}
+
+
+# ---------------------------------------------------------------------------
+# The chunked single-history engine
+# ---------------------------------------------------------------------------
+
+#: Bound on slices per chunk attempt: slice-width narrowing stops at
+#: ceil(n_in / _MAX_SLICES) entry rows per slice.
+_MAX_SLICES = 64
+
+#: The queue that holds the services the chunked engine and the ladder
+#: refuse (deadlines, checkpoints, admission, provenance).
+SERVICES_QUEUE = "ROADMAP queue A6"
+
+
+def _refuse_services(deadline, checkpoint_dir, resume) -> None:
+    """Deadlines and chunk checkpoints are not ported: refuse them."""
+    for name, val in (("deadline", deadline),
+                      ("checkpoint_dir", checkpoint_dir)):
+        if val is not None:
+            raise NotImplementedError(
+                f"{name} is not ported to the chunked engine ({SERVICES_QUEUE})")
+    if resume:
+        raise NotImplementedError(
+            f"resume is not ported to the chunked engine ({SERVICES_QUEUE})")
+
+
+def _chunk_bounds(quiet, B0: int, target: int) -> list[tuple[int, int]]:
+    """Split [0, B0) into chunks of at most ``target`` barriers, cut just
+    after the latest quiescent barrier (whose only open ok op is the
+    returning one) in the back half of each window where there is one:
+    the carried frontier there has every fok bitset empty, its smallest
+    summary."""
+    bounds = []
+    lo = 0
+    while lo < B0:
+        hi_max = min(lo + target, B0)
+        hi = hi_max
+        if hi_max < B0:
+            for b in range(hi_max - 1, lo + target // 2 - 1, -1):
+                if quiet[b]:
+                    hi = b + 1
+                    break
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def _scan_slices(step, F: int, rounds: int, fast: bool, dedup: str,
+                 c_tables: dict, slot_lane, slot_onehot, frontier,
+                 cuts, width: int, W: int, G: int, dev):
+    """Scan one chunk from each slice ``frontier[a : a + width]`` (``a``
+    in ``cuts``) of the host frontier, each at the full capacity F, one
+    single-lane scan per slice.  Returns the slice outputs (state, fok,
+    fcr, alive on the device; failed_at, lossy, peak as host values)."""
+    global SCAN_SYNCS
+    f_state, f_fok, f_fcr = frontier
+    n_in = f_state.shape[0]
+    outs = []
+    for a in cuts:
+        b = min(a + width, n_in)
+        k = max(1, b - a)  # the initial 1-row frontier case
+        st0 = np.zeros(F, np.int32)
+        fo0 = np.zeros((F, W), np.int32)
+        fc0 = np.zeros((F, G), np.int16)
+        al0 = np.zeros(F, bool)
+        st0[:k] = f_state[a:a + k]
+        fo0[:k] = f_fok[a:a + k]
+        fc0[:k] = f_fcr[a:a + k]
+        al0[: b - a] = True
+        s, fo, fc, al, failed_at, lossy, peak = _scan_chunk_core(
+            step, F, rounds, fast,
+            *(torch.from_numpy(x).to(dev)[None] for x in (st0, fo0, fc0, al0)),
+            c_tables, slot_lane, slot_onehot, dedup=dedup)
+        fat, lz, pk = torch.stack([failed_at.long(), lossy.long(),
+                                   peak.long()], 1)[0].tolist()
+        SCAN_SYNCS += 1
+        outs.append((s[0], fo[0], fc[0], al[0], fat, bool(lz), pk))
+    return outs
+
+
+class _Attempt(NamedTuple):
+    """One chunk's scan (``_attempt_chunk``): the last attempt's slice
+    outputs, whether it lost rows (``truncated``: the entry frontier was
+    cut to the rung), its summed peak, the rung index it ran at; over
+    every attempt, the slice scans launched, the extra slices spent
+    (spill work) and the largest summed peak."""
+    outs: list
+    lossy: bool
+    truncated: bool
+    peak: int
+    idx: int
+    launches: int
+    spent: int
+    peak_max: int
+
+
+def _attempt_chunk(step, rounds: int, fast: bool, dedup: str, c_tables: dict,
+                   slot_lane, slot_onehot, frontier, caps, idx: int,
+                   W: int, G: int, dev, *, spill: bool, usable=None,
+                   narrow: bool = False, spill_left: int | None = None,
+                   ring=None, on_event=None, barrier: int = 0) -> _Attempt:
+    """Scan one chunk from the carried host ``frontier``, the scan loop
+    shared by ``chunked_analysis`` and ``scan_barrier_range``: climb the
+    rungs of ``caps`` while the frontier does not fit, scan it (under
+    ``spill`` in slices of at most the rung's rows, else truncated to
+    the rung), and re-run from the same frontier at the next larger
+    usable rung while any slice lost rows.  With ``narrow`` (a single
+    barrier under spill), a loss at the top rung retries with slices
+    half as wide, down to ``_MAX_SLICES`` slices, while the spill work
+    (``spill_left`` extra slices and retries) lasts.  ``ring`` drops a
+    failed attempt's pending rows."""
+    def ok(i: int) -> bool:
+        return usable is None or usable(i)
+
+    n_in = frontier[0].shape[0]
+    while (idx + 1 < len(caps) and caps[idx] < n_in
+           and caps[idx + 1] > caps[idx] and ok(idx + 1)):
+        idx += 1
+    launches = spent = peak_max = 0
+    width = None  # entry rows per slice; F on entry, halves on retry
+    while True:
+        F = caps[idx]
+        if width is None:
+            width = F
+        cuts = list(range(0, n_in, width)) if spill else []
+        cuts = cuts or [0]
+        spent += len(cuts) - 1
+        outs = _scan_slices(step, F, rounds, fast, dedup, c_tables, slot_lane,
+                            slot_onehot, frontier, cuts, width, W, G, dev)
+        launches += len(outs)
+        # without spill, an entry frontier past F is truncated: loss
+        trunc = not spill and n_in > F
+        lossy = trunc or any(o[5] for o in outs)
+        peak = sum(o[6] for o in outs)
+        peak_max = max(peak_max, peak)
+        nxt = idx + 1
+        retry = False
+        if lossy and nxt < len(caps) and caps[nxt] > caps[idx] and ok(nxt):
+            if on_event is not None:
+                on_event("escalation", barrier=barrier, to_capacity=caps[nxt])
+            idx = nxt  # re-run this chunk wider, from the same frontier
+            width = None
+            retry = True
+        elif (lossy and narrow and spent < spill_left
+              and width > max(1, (n_in + _MAX_SLICES - 1) // _MAX_SLICES)):
+            # a single barrier still overflowing: narrower slices at the
+            # same capacity before declaring exhaustion
+            spent += 1
+            width = max(max(1, (n_in + _MAX_SLICES - 1) // _MAX_SLICES),
+                        width // 2)
+            retry = True
+        if not retry:
+            return _Attempt(outs, lossy, trunc, peak, idx, launches, spent,
+                            peak_max)
+        if ring is not None:
+            ring.discard()
+
+
+def _death(slice_outs) -> int | None:
+    """The chunk-relative barrier at which every slice died (the latest
+    slice's death), or None while any slice survives."""
+    fails = [o[4] for o in slice_outs]
+    return max(fails) if all(f >= 0 for f in fails) else None
+
+
+def _step_down(idx: int, caps, peak: int, rows: int) -> int:
+    """The rung for the next chunk: one down when the last chunk's peak
+    left 4x headroom there and the carried frontier fits it."""
+    if idx > 0 and peak * 4 <= caps[idx - 1] and rows <= caps[idx - 1]:
+        return idx - 1
+    return idx
+
+
+def _survivors(slice_outs, ring):
+    """The carried frontier after a chunk, as host arrays (state, fok
+    int32 bits, fcr): one slice's alive rows directly (its output is an
+    antichain already), or the surviving slices' rows through ``ring``
+    and the exact merge."""
+    global SCAN_SYNCS
+    if len(slice_outs) == 1:
+        s, fo, fc, al = slice_outs[0][:4]
+        SCAN_SYNCS += 1
+        sel = al.nonzero().squeeze(1)
+        return (s[sel].cpu().numpy(), fo[sel].cpu().numpy(),
+                fc[sel].cpu().numpy())
+    for s, fo, fc, al, failed, _lz, _pk in slice_outs:
+        if failed < 0:  # dead slices contribute no rows
+            ring.push(s, fo, fc, al)
+    popped = ring.pop_all()
+    return spill_mod.merge_frontiers([popped] if popped is not None else [])[:3]
+
+
+def chunked_analysis(
+    model: m.Model,
+    history: Sequence[dict],
+    packed: dict,
+    capacities: Sequence[int],
+    rounds: int = 8,
+    chunk_barriers: int = 512,
+    fast: bool = False,
+    dedup_backend: str | None = None,
+    deadline=None,
+    spill: bool | None = None,
+    frontier_budget_mb: float | None = None,
+    spill_factor: float = 4.0,
+    spill_launches: int | None = None,
+    factor_groups: bool | None = None,
+    checkpoint_dir=None,
+    resume: bool = False,
+    device=None,
+) -> dict:
+    """Decide linearizability as a chain of chunk scans with a carried
+    frontier, under a bounded device-memory contract (the JAX package's
+    ``chunked_analysis``).
+
+    The history's barriers split into chunks of at most
+    ``chunk_barriers`` (``_chunk_bounds``).  Each chunk scans from the
+    exact frontier the previous one left, on the barrier-scan engine
+    (``_scan_chunk_core``, one lane) at the current rung of
+    ``capacities``; an overflowing chunk re-runs from the same frontier
+    at the next rung, and the rung steps back down when a chunk's peak
+    leaves 4x headroom.
+
+    Spill (``spill``; by default on when ``frontier_budget_mb`` or
+    ``spill_launches`` is given): the sweep is linear in the frontier,
+    so an entry frontier larger than the rung streams through the chunk
+    scan in slices of at most the rung's rows.  The slices' survivors go
+    to the host through a ``spill.HostRing`` and recombine by the exact
+    ``spill.merge_frontiers``; refutation needs every slice to die.
+    ``frontier_budget_mb`` (or JEPSEN_TPU_FRONTIER_BUDGET_MB) skips the
+    rungs whose working set does not fit.  A chunk that still overflows
+    at the highest usable rung bisects, down to single barriers, where
+    the slices narrow; only then is the loss accepted, within a budget
+    of extra launches (``spill_launches``, default 2 per chunk + 8).
+    The host frontier is bounded by ``spill_factor`` times the widest
+    usable rung.  ``factor_groups`` (default: with spill) first removes
+    the trace-independent crashed-op groups (``spill.factor_packed``).
+
+    Soundness: True needs only a surviving frontier.  False is reported
+    only when no chunk lost rows up to the death; with ``fast`` it is
+    marked ``provisional?`` (hash-decided kills).  An unknown that
+    exhausted memory carries ``spill.undecidability_report``.  Stats
+    under ``"kernel"``: frontier-peak, capacity, lossy?, chunks,
+    launches (chunk-slice scans), spill-rows, spill-bytes, factors,
+    verified-barriers (passed with no loss), witnessed-barriers, and
+    bar-opid at a death.
+
+    ``deadline``, ``checkpoint_dir`` and ``resume`` are refused
+    (``SERVICES_QUEUE``).  ``device``: the card unless the caller asks
+    for "cpu".
+    """
+    _refuse_services(deadline, checkpoint_dir, resume)
+    dev = resolve_device(device)
+    dedup = resolve_dedup_backend(dedup_backend)
+    B0 = packed["B"]
+    quiet = packed["bar_quiet"]
+    budget_mb = spill_mod.resolve_budget_mb(frontier_budget_mb)
+    spill_on = (
+        bool(spill) if spill is not None
+        else (budget_mb is not None or spill_launches is not None)
+    )
+    if factor_groups is None:
+        factor_groups = spill_on
+    factors = 0
+    if factor_groups:
+        packed, factors = spill_mod.factor_packed(packed)
+    packed = pad_packed(packed, B=B0)  # bucket P/G; keep B for slicing
+    P, G, W = packed["P"], packed["G"], packed["W"]
+    caps = [int(c) for c in capacities]
+    b_rows = spill_mod.budget_rows(budget_mb, W, G, P)
+    step = packed["step"]
+    tables, slot_lane, slot_onehot = _history_tables(packed, dev)
+
+    def _usable(i: int) -> bool:
+        """Rung i fits the device budget (rung 0 always runs)."""
+        return i == 0 or b_rows is None or caps[i] <= b_rows
+
+    top_usable = max(c for i, c in enumerate(caps) if _usable(i))
+    host_rows_max = max(int(spill_factor * top_usable), top_usable)
+
+    f_state = np.array([packed["init_state"]], np.int32)
+    f_fok = np.zeros((1, W), np.int32)
+    f_fcr = np.zeros((1, G), np.int16)
+    idx = 0
+    lossy_any = False
+    peak_g = 1
+    verified = 0
+    launches = 0
+    ring = spill_mod.HostRing(W, G)
+    exhaust_rep: dict | None = None
+
+    spans = _chunk_bounds(quiet, B0, int(chunk_barriers))
+    n_spans0 = len(spans)
+    spill_budget = (
+        int(spill_launches) if spill_launches is not None
+        else 2 * max(1, n_spans0) + 8
+    )
+    spill_spent = 0
+
+    def _stats(capacity: int) -> dict:
+        s = {
+            "frontier-peak": peak_g, "capacity": capacity,
+            "lossy?": lossy_any, "chunks": n_spans0, "launches": launches,
+            "spill-rows": ring.rows_total, "spill-bytes": ring.bytes_total,
+        }
+        if factors:
+            s["factors"] = factors
+        return s
+
+    def _report(**kw) -> dict:
+        return spill_mod.undecidability_report(
+            barriers_total=B0, budget_mb=budget_mb, budget_rows=b_rows,
+            spill_rows=ring.rows_total, spill_bytes=ring.bytes_total,
+            factor_count=factors, device_buffer_bytes=device_buffer_bytes(dev),
+            **kw)
+
+    def _attach_report(res: dict) -> dict:
+        """An unknown that exhausted fixed memory carries the report."""
+        if exhaust_rep is not None and res.get("valid?") == "unknown":
+            res["undecidability"] = exhaust_rep
+            res["cause"] = spill_mod.undecidable_cause(exhaust_rep)
+        return res
+
+    si = 0
+    while si < len(spans):
+        lo, hi = spans[si]
+        n_in = f_state.shape[0]
+        att = _attempt_chunk(
+            step, int(rounds), fast, dedup, _chunk_tables(tables, lo, hi),
+            slot_lane, slot_onehot, (f_state, f_fok, f_fcr), caps, idx, W, G,
+            dev, spill=spill_on,
+            usable=_usable, narrow=spill_on and (hi - lo) == 1,
+            spill_left=spill_budget - spill_spent, ring=ring)
+        slice_outs, any_lossy, peak_total, idx = (att.outs, att.lossy,
+                                                  att.peak, att.idx)
+        launches += att.launches
+        spill_spent += att.spent
+        peak_g = max(peak_g, att.peak_max)
+        if (any_lossy and spill_on and spill_spent < spill_budget
+                and (hi - lo) > 1):
+            # bisect the chunk, so that the frontier is re-checked (and
+            # spilled) at its midpoint
+            ring.discard()
+            rel = _chunk_bounds(quiet[lo:hi], hi - lo,
+                                max(1, (hi - lo + 1) // 2))
+            spans[si:si + 1] = [(lo + a, lo + b) for a, b in rel]
+            spill_spent += 1
+            continue
+        if spill_on and spill_spent >= spill_budget:
+            # the spill work budget is spent: truncation from here on
+            spill_on = False
+            if exhaust_rep is None:
+                exhaust_rep = _report(
+                    capacity=caps[idx], frontier_rows=n_in,
+                    peak_frontier=peak_total, barrier=lo,
+                    reason="spill-budget")
+        if any_lossy and exhaust_rep is None:
+            # the kernel reports the post-filter peak; a lossy round
+            # overflowed the capacity, so the closure peak is > capacity
+            exhaust_rep = _report(
+                capacity=caps[idx], frontier_rows=n_in,
+                peak_frontier=max(peak_total, caps[idx] + 1), barrier=lo)
+        lossy_any |= any_lossy
+        died = _death(slice_outs)
+        if died is not None:
+            gb = lo + died
+            op_pos = int(packed["bar_opid"][gb])
+            stats = _stats(caps[idx])
+            stats["bar-opid"] = op_pos
+            stats["verified-barriers"] = verified
+            stats["witnessed-barriers"] = gb
+            if lossy_any:
+                return _attach_report({
+                    "valid?": "unknown",
+                    "cause": "frontier capacity or closure rounds exhausted",
+                    "op": history[op_pos],
+                    "kernel": stats,
+                })
+            res = {"valid?": False, "op": history[op_pos], "kernel": stats}
+            if fast:
+                res["provisional?"] = True  # hash-decided kills
+            return res
+        if not lossy_any:
+            verified = hi
+        f_state, f_fok, f_fcr = _survivors(slice_outs, ring)
+        del slice_outs
+        rows = int(f_state.shape[0])
+        if rows > host_rows_max:
+            # the host bound: truncate (the most speculative rows last in
+            # candidate order drop first) and latch loss
+            if exhaust_rep is None:
+                exhaust_rep = _report(
+                    capacity=caps[idx], frontier_rows=rows,
+                    peak_frontier=peak_g, barrier=hi, reason="host-budget")
+            f_state = f_state[:host_rows_max]
+            f_fok = f_fok[:host_rows_max]
+            f_fcr = f_fcr[:host_rows_max]
+            lossy_any = True
+            rows = host_rows_max
+        idx = _step_down(idx, caps, peak_total, rows)
+        si += 1
+    stats = _stats(caps[idx])
+    stats["verified-barriers"] = verified
+    stats["witnessed-barriers"] = B0  # the survivor is the whole witness
+    return {"valid?": True, "kernel": stats}
+
+
+def scan_barrier_range(
+    packed: dict,
+    frontier: tuple,
+    lo: int,
+    hi: int,
+    *,
+    capacities: Sequence[int],
+    rounds: int = 8,
+    chunk_barriers: int = 512,
+    cap_idx: int = 0,
+    lossy: bool = False,
+    fast: bool = False,
+    dedup_backend: str | None = None,
+    spill: bool = False,
+    on_event=None,
+    device=None,
+) -> dict:
+    """Advance a carried frontier through barriers ``[lo, hi)`` of an
+    already-padded pack, chunk by chunk through ``chunked_analysis``'s
+    own chunk attempt (``_attempt_chunk``), without its device budget,
+    bisection or slice narrowing, so that an incremental caller can
+    extend a scan range by range (the JAX package's
+    ``scan_barrier_range``).
+
+    ``packed`` is ``pad_packed`` output with ``B`` kept at the true
+    barrier count; ``frontier`` the carried ``(state, fok, fcr)`` host
+    arrays at the pack's (W, G), fok as uint32 or int32 bit patterns.
+    Chunk cuts and the capacity ladder are ``chunked_analysis``'s.
+    ``spill`` slices an overflowing entry frontier through the same scan
+    and merges the survivors exactly; without it the overflow truncates
+    and latches ``lossy``.  ``on_event(event, **attrs)`` receives the
+    escalation and truncation events.  ``device``: the card unless the
+    caller asks for "cpu".
+
+    Returns {"frontier": surviving (state, fok int32 bits, fcr),
+    "failed_barrier": the global barrier the frontier died at or None,
+    "cap_idx", "lossy": to thread into the next call, "launches",
+    "peak", "error": None}.
+    """
+    dev = resolve_device(device)
+    dedup = resolve_dedup_backend(dedup_backend)
+    caps = [int(c) for c in capacities]
+    P, G, W = packed["P"], packed["G"], packed["W"]
+    quiet = packed["bar_quiet"]
+    f_state = np.asarray(frontier[0], np.int32)
+    f_fok = fok_bits(frontier[1])
+    f_fcr = np.asarray(frontier[2], np.int16)
+    idx = min(max(int(cap_idx), 0), len(caps) - 1)
+    lossy_any = bool(lossy)
+    launches = 0
+    peak_g = 0
+
+    def _ev(event: str, **attrs) -> None:
+        if on_event is not None:
+            on_event(event, **attrs)
+
+    def _out(failed=None):
+        return {
+            "frontier": (f_state, f_fok, f_fcr),
+            "failed_barrier": failed, "cap_idx": idx, "lossy": lossy_any,
+            "launches": launches, "peak": peak_g, "error": None,
+        }
+
+    if hi <= lo:
+        return _out()
+    tables, slot_lane, slot_onehot = _history_tables(packed, dev)
+    spans = [
+        (lo + a, lo + b)
+        for a, b in _chunk_bounds(quiet[lo:hi], hi - lo, int(chunk_barriers))
+    ]
+    for clo, chi in spans:
+        att = _attempt_chunk(
+            packed["step"], int(rounds), fast, dedup,
+            _chunk_tables(tables, clo, chi), slot_lane, slot_onehot,
+            (f_state, f_fok, f_fcr), caps, idx, W, G, dev, spill=spill,
+            on_event=_ev, barrier=clo)
+        idx = att.idx
+        launches += att.launches
+        peak_g = max(peak_g, att.peak_max)
+        lossy_any |= att.lossy
+        if att.truncated:
+            _ev("truncated", barrier=clo)
+        died = _death(att.outs)
+        if died is not None:
+            return _out(failed=clo + died)
+        f_state, f_fok, f_fcr = _survivors(att.outs, spill_mod.HostRing(W, G))
+        idx = _step_down(idx, caps, att.peak, int(f_state.shape[0]))
+        del att
+    return _out()
+
+
+def _admit(model, history, max_groups: int, max_procs: int):
+    """Pack one history for the single-history entry points: (packed,
+    None), or (None, the result that decides it without the engines)."""
+    try:
+        packed = pack(model, history)
+    except NotTensorizable as e:
+        return None, {"valid?": "unknown", "cause": f"not tensorizable: {e}"}
+    if packed["B"] == 0:
+        return None, {"valid?": True}
+    if packed["G"] > max_groups:
+        return None, {"valid?": "unknown",
+                      "cause": f"{packed['G']} crashed-op groups exceeds {max_groups}"}
+    if packed["P"] > max_procs:
+        return None, {"valid?": "unknown",
+                      "cause": f"{packed['P']} process slots exceeds {max_procs}"}
+    return packed, None
+
+
+def analysis(
+    model: m.Model,
+    history: Sequence[dict],
+    capacity: int | Sequence[int] = (128, 1024, 4096),
+    rounds: int = 8,
+    max_groups: int = 64,
+    max_procs: int = 128,
+    chunk_barriers: int = 512,
+    fast: bool = False,
+    dedup_backend: str | None = None,
+    deadline=None,
+    spill: bool | None = None,
+    frontier_budget_mb: float | None = None,
+    spill_factor: float = 4.0,
+    spill_launches: int | None = None,
+    factor_groups: bool | None = None,
+    checkpoint_dir=None,
+    resume: bool = False,
+    device=None,
+) -> dict:
+    """Decide one history's linearizability on the card (the JAX
+    package's ``wgl.analysis``).
+
+    Knossos-shaped result: ``{"valid?": True|False|"unknown", ...}`` with
+    engine stats under ``"kernel"``.  True is always exact; False is
+    exact unless the frontier lost rows (then "unknown"), and provisional
+    with ``fast``.  ``capacity`` may be a sequence: the per-chunk
+    escalation ladder of ``chunked_analysis``, which takes every other
+    argument.  ``device``: the card unless the caller asks for "cpu"."""
+    _refuse_services(deadline, checkpoint_dir, resume)
+    packed, decided = _admit(model, history, max_groups, max_procs)
+    if decided is not None:
+        if decided["valid?"] is True:
+            decided["configs"] = [{"model": model}]
+        return decided
+    capacities = [capacity] if isinstance(capacity, int) else list(capacity)
+    return chunked_analysis(
+        model, history, packed, capacities, rounds, chunk_barriers, fast=fast,
+        dedup_backend=dedup_backend, spill=spill,
+        frontier_budget_mb=frontier_budget_mb, spill_factor=spill_factor,
+        spill_launches=spill_launches, factor_groups=factor_groups,
+        device=device,
+    )
+
+
+def greedy_analysis(
+    model: m.Model,
+    history: Sequence[dict],
+    max_groups: int = 64,
+    max_procs: int = 128,
+    device=None,
+) -> dict:
+    """The greedy witness walk on one history (``greedy_run``, one
+    lane): True (a witness) or "unknown", never False.  ``device``: the
+    card unless the caller asks for "cpu"."""
+    packed, decided = _admit(model, history, max_groups, max_procs)
+    if decided is not None:
+        return decided
+    dev = resolve_device(device)
+    n_active = int(packed["bar_active"].sum())
+    packed = pad_packed(packed)
+    tables, slot_lane, slot_onehot = _history_tables(packed, dev)
+    init = torch.tensor([int(packed["init_state"])], dtype=torch.int32,
+                        device=dev)
+    finished, stuck_at, fired = greedy_run(
+        packed["step"], packed["B"], init,
+        torch.tensor([n_active], dtype=torch.int32, device=dev), tables,
+        slot_lane, slot_onehot)
+    finished, stuck_at, fired = (int(x) for x in torch.stack(
+        [finished.long(), stuck_at.long(), fired.long()], 1)[0].tolist())
+    stats = {"engine": "greedy", "fired-crashed": fired}
+    if finished:
+        return {"valid?": True, "kernel": stats}
+    return {
+        "valid?": "unknown",
+        "cause": "greedy walk stuck (no single-enabler move)",
+        "op": history[int(packed["bar_opid"][stuck_at])],
+        "kernel": {**stats, "stuck-at": stuck_at},
+    }
+
+
+def analysis_async(
+    model: m.Model,
+    history: Sequence[dict],
+    capacity: int = 128,
+    ticks: int | None = None,
+    max_groups: int = 64,
+    max_procs: int = 128,
+    dedup_backend: str | None = None,
+    device=None,
+) -> dict:
+    """One history on the lane-asynchronous engine (``run_async``, one
+    lane), from barrier 0 at ``capacity`` rows with ``ticks`` ticks
+    (default ``async_ticks``).  Its refutations are hash-decided.
+    ``device``: the card unless the caller asks for "cpu"."""
+    dedup = resolve_dedup_backend(dedup_backend)
+    packed, decided = _admit(model, history, max_groups, max_procs)
+    if decided is not None:
+        return decided
+    dev = resolve_device(device)
+    n_active = int(packed["bar_active"].sum())
+    packed = pad_packed(packed)
+    B = packed["B"]
+    T = int(ticks) if ticks is not None else async_ticks(B)
+    F, W, G = int(capacity), packed["W"], packed["G"]
+    tables, slot_lane, slot_onehot = _history_tables(packed, dev)
+    fresh = fresh_frontier(1, F, W, G, [packed["init_state"]])
+    out = run_async(
+        packed["step"], F, T,
+        *(torch.from_numpy(a).to(dev) for a in fresh),
+        torch.tensor([n_active], dtype=torch.int32, device=dev), tables,
+        slot_lane, slot_onehot, dedup=dedup)
+    valid, failed_at, lossy, peak = (int(x) for x in torch.stack(
+        [o.long() for o in out[:4]], 1)[0].tolist())
+    stats = {"frontier-peak": peak, "capacity": F, "ticks": T,
+             "lossy?": bool(lossy)}
+    if valid:
+        return {"valid?": True, "kernel": stats}
+    if not lossy:
+        op = None
+        if 0 <= failed_at < len(packed["bar_opid"]):
+            op_pos = int(packed["bar_opid"][failed_at])
+            op = history[op_pos]
+            stats["bar-opid"] = op_pos
+        return {"valid?": False, "op": op, "kernel": stats}
+    return {
+        "valid?": "unknown",
+        "cause": "frontier capacity or tick budget exhausted",
+        "kernel": stats,
+    }

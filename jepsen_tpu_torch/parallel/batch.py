@@ -6,19 +6,24 @@ and one batched engine launch checks a sub-batch of lanes:
 
   1. rung 0, the greedy witness walk (``wgl.greedy_run``): most valid
      lanes resolve here;
-  2. the async capacity rungs (``wgl.run_async``), each re-batching only
-     the lanes still pending; with ``carry_frontier`` a lane resumes at
-     its saved exact pre-loss frontier instead of re-running from
-     barrier 0;
-  3. refutations are hash-decided, so each is confirmed by the exact CPU
-     sweep in a spawned worker process, concurrently with the remaining
-     rungs;
-  4. with a mesh of two or more shards and the fused backend, the lanes
-     the last rung leaves undecided get one run of the mesh-spanning
+  2. the capacity rungs, each re-batching only the lanes still pending:
+     the async engine (``wgl.run_async``; with ``carry_frontier`` a lane
+     resumes at its saved exact pre-loss frontier instead of re-running
+     from barrier 0) or the barrier-scan "sync" engine
+     (``wgl.batched_runner``);
+  3. the exact stages (``exact_escalation``): the barrier-scan engine
+     with the exact update (``wgl.exact_batched_runner``), sub-batched
+     by a lane-row budget; their refutations are final;
+  4. the fast rungs' refutations are hash-decided, so each is confirmed
+     by the exact CPU sweep in a spawned worker process, concurrently
+     with the remaining rungs;
+  5. with a mesh of two or more shards and the fused backend, the lanes
+     the last stage leaves undecided get one run of the mesh-spanning
      stage at shards × the top rung (the mesh rescue).
 
 ``True`` is sound from every rung (a surviving frontier is a witness);
-``False`` is reported only once the exact sweep confirms it.
+``False`` is reported only once the exact sweep confirms it, or from an
+exact stage.
 """
 
 from __future__ import annotations
@@ -47,9 +52,11 @@ _CONFIRM_POOL: ProcessPoolExecutor | None = None
 
 #: Engine frontier rows per launch (the JAX package's budgets); the
 #: carried-frontier variant halves it because the resume snapshot
-#: doubles the engine's resident frontier.
+#: doubles the engine's resident frontier, and the exact engine's sort
+#: and domination buffers take a quarter.
 _FAST_LANE_BUDGET = 64 * 1024
 _CARRY_LANE_BUDGET = 32 * 1024
+_EXACT_LANE_BUDGET = 16 * 1024
 
 #: The padded-geometry buckets every batched launch quantizes to.
 P_BUCKETS = (8, 16, 32, 64, 128)
@@ -157,6 +164,7 @@ def _stack(packs: list[dict], B: int, P: int, G: int) -> dict:
     out = {
         "init_state": np.stack([p["init_state"] for p in padded]),
         "n_active": np.array([p["bar_active"].sum() for p in packs], np.int32),
+        "bar_active": np.stack([p["bar_active"] for p in padded]),
     }
     for i, name in enumerate(["bar_f", "bar_v1", "bar_v2", "bar_slot"]):
         out[name] = np.stack([p["bar"][i] for p in padded])
@@ -177,11 +185,12 @@ def _pad_lanes(a: np.ndarray, n_pad: int) -> np.ndarray:
 
 
 def _launch(st_engine: str, batch_cap: int, sub: list[dict],
-            sub_resumes, dedup: str, device):
+            sub_resumes, dedup: str, device, rounds: int):
     """Stack ``sub`` to common bucket shapes and run one batched engine
-    launch; returns (valid, failed_at, lossy, peak) as host arrays of
-    len(sub), the padded lane count, and the async engine's resume
-    snapshot as device tensors (or None)."""
+    launch ("greedy", "async", "sync" or "exact"); returns (valid,
+    failed_at, lossy, peak) as host arrays of len(sub), the padded lane
+    count, and the async engine's resume snapshot as device tensors (or
+    None)."""
     B, P, G = bucket_geometry(
         max(p["B"] for p in sub), max(p["P"] for p in sub),
         max(p["G"] for p in sub),
@@ -208,6 +217,15 @@ def _launch(st_engine: str, batch_cap: int, sub: list[dict],
         # unresolved = lossy -> stays pending for the beam ladder
         return (finished, np.full(n, -1, np.int32), ~finished,
                 np.ones(n, np.int32)), n_pad, None
+    if st_engine in ("sync", "exact"):
+        runner = (wgl.batched_runner if st_engine == "sync"
+                  else wgl.exact_batched_runner)
+        tables["bar_active"] = dev(stacked["bar_active"])
+        out = runner(step, batch_cap, int(rounds), dev(stacked["init_state"]),
+                     tables, slot_lane, slot_onehot, dedup=dedup)
+        out = torch.stack([o.to(torch.int64) for o in out], 1).cpu().numpy()[:n]
+        return (out[:, 0].astype(bool), out[:, 1].astype(np.int32),
+                out[:, 2].astype(bool), out[:, 3].astype(np.int32)), n_pad, None
     F = batch_cap
     bptr0, st0, fo0, fc0, al0 = wgl.fresh_frontier(
         n, F, W, G, stacked["init_state"])
@@ -229,7 +247,8 @@ def _launch(st_engine: str, batch_cap: int, sub: list[dict],
 
 
 def _mesh_rescue(model, histories, packs, idxs, exhausted, results, mesh,
-                 top_cap, confirm_refutations, confirm_max_configs, stats):
+                 top_cap, confirm_refutations, confirm_max_configs, stats,
+                 rounds):
     """One run of the mesh-spanning stage, at shards × ``top_cap``, for
     each lane the ladder left undecided (the JAX package's order and
     semantics).  Updates ``results``; returns the lanes still
@@ -241,13 +260,16 @@ def _mesh_rescue(model, histories, packs, idxs, exhausted, results, mesh,
     for k in exhausted:
         i = idxs[k]
         r = sharded.mesh_kernel_analysis(model, histories[i], mesh,
-                                         capacity=(rescue_cap,))
+                                         capacity=(rescue_cap,),
+                                         rounds=rounds)
         if r["valid?"] is True:
             results[i] = r
         elif r["valid?"] is False and not confirm_refutations:
             results[i] = r  # unconfirmed: carries provisional?
         elif r["valid?"] is False:
-            fat = int(r["kernel"]["failed-at"])
+            # the chunked fallback's refutations carry no failed-at:
+            # then the sweep runs the whole history
+            fat = int(r.get("kernel", {}).get("failed-at", -1))
             op_pos = int(packs[k]["bar_opid"][fat]) if fat >= 0 else None
             cpu_res = wgl_cpu.sweep_analysis(
                 model, histories[i], max_configs=confirm_max_configs,
@@ -274,6 +296,7 @@ def batch_analysis(
     model: m.Model,
     histories: Sequence[Sequence[dict]],
     capacity: int | Sequence[int] = (64, 512, 4096),
+    rounds: int = 8,
     carry_frontier: bool = True,
     greedy_first: bool = True,
     confirm_refutations: bool = True,
@@ -292,38 +315,43 @@ def batch_analysis(
 ) -> list[dict]:
     """Check many histories against one model on the capacity ladder.
 
-    ``capacity`` lists the async rungs; each re-batches only the lanes
-    still pending, sub-batched to the lane budget and padded to a power
-    of two.  ``greedy_first`` prepends the greedy witness walk.
-    ``carry_frontier`` resumes escalated lanes from their snapshots.
+    ``capacity`` lists the fast rungs of ``engine``: "async" (the
+    lane-asynchronous engine, the default) or "sync" (the barrier-scan
+    engine, whose closure takes at most ``rounds`` rounds per barrier).
+    Each rung re-batches only the lanes still pending, sub-batched to the
+    lane budget and padded to a power of two.  ``exact_escalation``
+    appends exact stages at those capacities (the barrier-scan engine
+    with the exact update, ``rounds`` per barrier, sub-batched by
+    ``_EXACT_LANE_BUDGET`` rows); their refutations are final.
+    ``greedy_first`` prepends the greedy witness walk.
+    ``carry_frontier`` resumes escalated async lanes from their
+    snapshots.
     ``confirm_refutations`` confirms every refutation with the exact
     sweep in worker processes (False reports them unconfirmed).
     ``cpu_fallback`` decides the lanes the ladder leaves unknown with the
     exact sweep, in process.  ``dedup_backend``: "fused" (the default;
-    the fused CUDA update on wide rungs) or "bucket".  ``device``: the
+    the fused CUDA update on wide rungs), "bucket" or "sort".  ``device``: the
     card unless the caller asks for "cpu" (with a mesh and no device,
     the mesh's device).  ``mesh``: a ``parallel.mesh.Mesh``; the ladder
     runs on ``device`` (its lanes are not placed across shards, which
     would mean nothing on one card), and with two or more shards under
-    "fused" the lanes the last rung leaves undecided get the mesh
+    "fused" the lanes the last stage leaves undecided get the mesh
     rescue before ``cpu_fallback``: ``mesh_kernel_analysis`` at shards ×
-    the top rung; True lands, False is confirmed in process by the exact
+    the top rung (``wgl.analysis`` where the mesh stage is infeasible); True lands, False is confirmed in process by the exact
     sweep (or stays provisional when ``confirm_refutations`` is False),
     unknown keeps its mesh-capacity cause.  ``stats``, when given, is
     filled with per-rung records (stage, engine, capacity, lanes,
     padded, seconds, resolved, refuted, unknowns) and, when the rescue
     ran, ``mesh_rescue`` (capacity, shards, lanes, resolved, seconds).
 
-    Not in this port yet, and refused rather than ignored: the "sync"
-    engine, exact escalation stages, a mesh across cards, checkpoints,
-    deadlines, rung admission and device confirmation.
+    Not in this port yet, and refused rather than ignored: a mesh across
+    cards, checkpoints, deadlines, rung admission (``wgl.SERVICES_QUEUE``)
+    and device confirmation.
 
     Returns one result per history, in order.
     """
-    if engine != "async":
-        raise NotImplementedError(f"engine={engine!r}: only 'async' is ported")
-    if exact_escalation:
-        raise NotImplementedError("exact_escalation stages are not ported")
+    if engine not in ("sync", "async"):
+        raise ValueError(f"unknown engine {engine!r}; expected 'sync' or 'async'")
     if mesh is not None and not isinstance(mesh, Mesh):
         raise NotImplementedError(
             "mesh must be a parallel.mesh.Mesh of logical shards on one "
@@ -331,7 +359,8 @@ def batch_analysis(
     for name, val in (("checkpoint_dir", checkpoint_dir),
                       ("deadline", deadline), ("admission", admission)):
         if val is not None:
-            raise NotImplementedError(f"{name} is not ported")
+            raise NotImplementedError(
+                f"{name} is not ported ({wgl.SERVICES_QUEUE})")
     if confirm_refutations not in (True, False):
         raise NotImplementedError(
             f"confirm_refutations={confirm_refutations!r}: only worker "
@@ -362,7 +391,10 @@ def batch_analysis(
         stats["rungs"] = rung_stats
 
     batch_caps = [capacity] if isinstance(capacity, int) else list(capacity)
-    stages = [("async", int(c)) for c in batch_caps]
+    batch_caps = [int(c) for c in batch_caps]
+    exact_caps = [int(c) for c in (exact_escalation or ())]
+    stages = ([(engine, c) for c in batch_caps]
+              + [("exact", c) for c in exact_caps])
     if greedy_first and stages:
         stages = [("greedy", 1)] + stages
     pending = list(range(len(packs)))
@@ -373,8 +405,12 @@ def batch_analysis(
             break
         t_stage = time.perf_counter()
         group = pending
-        budget = (_CARRY_LANE_BUDGET if st_engine == "async" and carry_frontier
-                  else _FAST_LANE_BUDGET)
+        if st_engine == "exact":
+            budget = _EXACT_LANE_BUDGET
+        elif st_engine == "async" and carry_frontier:
+            budget = _CARRY_LANE_BUDGET
+        else:
+            budget = _FAST_LANE_BUDGET
         fetch_snaps = (st_engine == "async" and carry_frontier
                        and any(e == "async" for e, _ in stages[si + 1:]))
         lanes_cap = max(1, budget // batch_cap)
@@ -386,7 +422,7 @@ def batch_analysis(
                        if st_engine == "async" and carry_frontier else None)
             (v, fat, lz, pk), n_pad, snap = _launch(
                 st_engine, batch_cap, [packs[k] for k in part], sub_res,
-                dedup, device)
+                dedup, device, rounds)
             padded += n_pad
             for j, k in enumerate(part):
                 lane_out[k] = (v[j], fat[j], lz[j], pk[j])
@@ -415,8 +451,8 @@ def batch_analysis(
                 op_pos = int(packs[k]["bar_opid"][int(fat_k)])
                 res = {"valid?": False, "op": histories[i][op_pos],
                        "kernel": kstats}
-                results[i] = res  # provisional until confirmed
-                if confirm_refutations:
+                results[i] = res  # final from an exact stage
+                if st_engine != "exact" and confirm_refutations:
                     fut = _submit_confirmation(
                         confirm_workers, model, list(histories[i]),
                         confirm_max_configs, op_pos)
@@ -439,13 +475,17 @@ def batch_analysis(
     if (pending and batch_caps and dedup == "fused" and mesh is not None
             and mesh.size > 1):
         pending = _mesh_rescue(model, histories, packs, idxs, pending,
-                               results, mesh, max(batch_caps),
+                               results, mesh, max(batch_caps + exact_caps),
                                confirm_refutations, confirm_max_configs,
-                               stats)
+                               stats, rounds)
 
     if pending:
-        note = (f"capacity ladder {tuple(batch_caps)} exhausted with no "
-                "exact-escalation stages")
+        if exact_caps:
+            note = (f"capacity ladder {tuple(batch_caps)} and exact "
+                    f"escalation {tuple(exact_caps)} exhausted")
+        else:
+            note = (f"capacity ladder {tuple(batch_caps)} exhausted with no "
+                    "exact-escalation stages")
         for k in pending:
             r = results[idxs[k]]
             if r is not None and r.get("valid?") == "unknown" and r.get("cause"):

@@ -13,11 +13,14 @@ applies.  "Dead", the peak and growth are global, as the JAX package's
 psums make them.  Each round reads its flags back once, and nothing
 else syncs the host.
 
+On a mesh of fewer than two shards, or at a geometry the mesh stage
+cannot take, ``mesh_kernel_analysis`` falls back to the chunked engine
+(``wgl.analysis`` with the fast engine under "fused"), as the JAX
+package does.
+
 Not ported yet: the context-parallel path without the kernel
-(``_route``, ``sharded_analysis``), lane placement (``lane_shard``),
-``mesh_round_probe``, and the chunked engine the JAX package falls back
-to on a mesh of fewer than two devices or an infeasible geometry
-(``wgl.analysis``, ROADMAP queue A3): those refuse here.
+(``_route``, ``sharded_analysis``, ``mesh_round_probe``; ROADMAP queue
+A4) and lane placement (``lane_shard``, queue B4).
 """
 
 from __future__ import annotations
@@ -167,10 +170,11 @@ def mesh_kernel_analysis(
     marked ``provisional?`` (callers confirm refutations before
     reporting them); True is a constructive witness; an exhausted
     ladder returns ``unknown`` whose undecidability report cites the
-    mesh capacity (shards × per-shard rows).  Where the JAX package
-    falls back to its chunked engine (fewer than two shards, or an
-    infeasible geometry) this raises ``NotImplementedError``: that
-    engine is ROADMAP queue A3."""
+    mesh capacity (shards × per-shard rows).  On fewer than two shards,
+    or where a rung's geometry is infeasible, the history goes to the
+    chunked engine on the mesh's device instead
+    (``wgl.analysis(fast=True, dedup_backend="fused")`` at the same
+    capacities and rounds), as in the JAX package."""
     D = mesh.size
     try:
         packed = wgl.pack(model, history)
@@ -187,10 +191,11 @@ def mesh_kernel_analysis(
     capacities = [capacity] if isinstance(capacity, int) else list(capacity)
     if D < 2 or any(not _mesh_rung_geometry(cap, D, packed)[2]
                     for cap in capacities):
-        raise NotImplementedError(
-            f"the mesh stage is infeasible on {D} shard(s) at capacity "
-            f"{tuple(capacities)}; the JAX package falls back to its "
-            "chunked engine there, which is not ported (ROADMAP queue A3)")
+        return wgl.analysis(
+            model, history, capacity=tuple(int(c) for c in capacities),
+            rounds=int(rounds), max_groups=max_groups, max_procs=max_procs,
+            fast=True, dedup_backend="fused", device=mesh.device,
+        )
 
     interpret = mesh.device.type != "cuda"
     result = None

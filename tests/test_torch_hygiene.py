@@ -115,13 +115,22 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 def test_batch_analysis_refuses_unported_options():
+    """What the ladder does not run raises (checkpoints, deadlines and
+    admission naming queue A6); the "sync" engine and exact stages run,
+    and an unknown engine is an error, as in the JAX package."""
     model = tm.CASRegister(None)
-    for kw in (dict(engine="sync"), dict(exact_escalation=(64,)),
-               dict(mesh=object()), dict(checkpoint_dir="x"),
+    for kw in (dict(mesh=object()), dict(checkpoint_dir="x"),
                dict(deadline=5.0), dict(admission=object()),
                dict(confirm_refutations="device")):
         with pytest.raises(NotImplementedError):
             tbatch.batch_analysis(model, [], device="cpu", **kw)
+    for kw in (dict(checkpoint_dir="x"), dict(deadline=5.0)):
+        with pytest.raises(NotImplementedError, match="A6"):
+            tbatch.batch_analysis(model, [], device="cpu", **kw)
+    assert tbatch.batch_analysis(model, [], device="cpu", engine="sync",
+                                 exact_escalation=(64,)) == []
+    with pytest.raises(ValueError, match="engine"):
+        tbatch.batch_analysis(model, [], device="cpu", engine="bogus")
 
 
 def test_spawned_confirm_worker_stays_off_torch():

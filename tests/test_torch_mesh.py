@@ -30,6 +30,7 @@ from jepsen_tpu_torch import convert
 from jepsen_tpu_torch import models as tm
 from jepsen_tpu_torch.checker import wgl_cpu
 from jepsen_tpu_torch.ops import hashing as th
+from jepsen_tpu_torch.ops import wgl as twgl
 from jepsen_tpu_torch.ops import wide_kernel as twk
 from jepsen_tpu_torch.parallel import batch as tbatch
 from jepsen_tpu_torch.parallel import sharded as tsh
@@ -429,21 +430,22 @@ def test_mesh_feasible_mirrors_jax_without_vmem(monkeypatch):
 @pytest.mark.parametrize("case", ["one-shard", "infeasible", "mixed-devices",
                                   "no-shards", "foreign-mesh"])
 def test_mesh_refusals(case, monkeypatch):
-    """What the port does not run raises: a mesh of fewer than two
-    shards or an infeasible geometry (the JAX package's fallback is the
-    unported chunked engine), shards on different devices (the
-    cross-card mesh), an empty mesh, and a mesh that is not the port's."""
+    """What the port does not run raises: shards on different devices
+    (the cross-card mesh), an empty mesh, and a mesh that is not the
+    port's.  A mesh of fewer than two shards or an infeasible geometry
+    falls back to the chunked engine, as in the JAX package."""
     model = tm.CASRegister(None)
     hist = valid_register_history(20, 3, seed=0, info_rate=0.1)
-    if case == "one-shard":
-        with pytest.raises(NotImplementedError, match="A3"):
-            tsh.mesh_kernel_analysis(model, hist, make_mesh(1, device="cpu"),
-                                     capacity=(64,))
-    elif case == "infeasible":
-        monkeypatch.setenv(twk.FUSED_MIN_CAPACITY_ENV, "4096")
-        with pytest.raises(NotImplementedError, match="A3"):
-            tsh.mesh_kernel_analysis(model, hist, make_mesh(4, device="cpu"),
-                                     capacity=(256,))
+    if case in ("one-shard", "infeasible"):
+        shards, cap = (1, 64) if case == "one-shard" else (4, 256)
+        if case == "infeasible":
+            monkeypatch.setenv(twk.FUSED_MIN_CAPACITY_ENV, "4096")
+        got = tsh.mesh_kernel_analysis(model, hist,
+                                       make_mesh(shards, device="cpu"),
+                                       capacity=(cap,))
+        assert got == twgl.analysis(model, hist, capacity=(cap,), fast=True,
+                                    dedup_backend="fused", device="cpu")
+        assert got["valid?"] is True and "devices" not in got["kernel"]
     elif case == "mixed-devices":
         with pytest.raises(NotImplementedError, match="cross-card"):
             Mesh((torch.device("cpu"), torch.device("cuda", 1)))

@@ -309,11 +309,11 @@ def test_frontier_update_fast_fused_route_matches_bucket(monkeypatch):
 
 @pytest.mark.parametrize("dedup", ["fused", "bucket"])
 def test_keep_stage_matches_jax_dedup_stage(dedup):
-    """keep_stage, the dedup stage alone, equals the JAX package's
+    """_dedup_stage, the dedup stage alone, equals the JAX package's
     _dedup_stage under the matching backend ("fused" <-> "pallas"),
     lane by lane (exact)."""
     tables, rows = _probe_lanes(range(4))
-    got = th.keep_stage(*tables, 4, dedup)
+    got = th._dedup_stage(*tables, 4, dedup)
     jb = "pallas" if dedup == "fused" else "bucket"
     for l, r in enumerate(rows):
         want = hx._dedup_stage_jit(*_jax_args(r), window=4, dedup_backend=jb)
