@@ -68,14 +68,18 @@ checkout (one nvcc per source, all started together), and then:
      and fused update must launch): (a) BASELINE config 2, a 10,000-op
      CAS-register history of 32 processes (5 % :info, seed 0; 7,091
      barriers, P = 32, G = 30 padded to 32), on the fast engine under
-     "fused" at capacity (1024, 4096) and on the default ladder (128,
-     1024, 4096): neither may refute it, and the greedy witness walk
-     must answer True (its closures outgrow 4,096 rows within the first
-     32 barriers, so the frontier engines lose rows: PERF.md); then a
-     2,000-op, 32-process history (seed 1, 1,417 barriers) on the fast
-     engine at (1024, 2048, 4096), without and with spill: both must
-     answer True (the spill=False run keeps a copy of its fused call
-     with the most alive rows at each rung); (b) config 2 corrupted,
+     "fused" at capacity (1024, 4096): it may not refute it, and the
+     greedy witness walk must answer True (its closures outgrow 4,096
+     rows within the first 32 barriers, so the frontier engines lose
+     rows: PERF.md); then a 2,000-op, 32-process history (seed 1, 1,417
+     barriers) on the fast engine at (1024, 2048, 4096), without and
+     with spill, and on its default ladder (128, 1024, 4096), which
+     climbs from a rung below the fused floor into the fused kernel
+     (config 2 on that ladder loses rows as at (1024, 4096), in ~4
+     times the time, so this history takes its place): all three must
+     answer True, the last at 4,096 rows with fused launches (the
+     spill=False run keeps a copy of its fused call with the most alive
+     rows at each rung); (b) config 2 corrupted,
      fast at (1024, 4096) and exact (``fast=False``) at 128 rows (the
      exact update at 4,096 rows costs ~0.16 s a barrier): the two
      verdicts (and, when False, the failing ops) must agree, and with
@@ -104,9 +108,45 @@ checkout (one nvcc per source, all started together), and then:
      1024, 2048 and 4096 rows (one lane, P = G = 32) are held against
      the plain versions (tolerance 0) and timed as the tables of phase 2
      are.  No history length is cut.
+  9. the checker front end, through the port's checkers only, with the
+     launch counts set to 0 before each sub-phase and read after it: (a)
+     the 128 bench histories as the keys 0-127 of one history (each
+     value wrapped with ``independent.tuple_``, 12,800 invoke/complete
+     pairs) through ``independent.checker(linearizable({"model":
+     "cas-register", "algorithm": "competition", "kernel-opts":
+     {"capacity": (128, 512, 2048)}}))``: ``check_batch`` called once
+     and returning, each key's verdict phase 5's where phase 5 decided,
+     and unknown or the exact sweep's (2,000,000 configurations) where
+     it did not; (b) those undecided keys again with ``"mesh":
+     make_mesh(4)`` in ``kernel-opts`` (the exchange must launch); (c)
+     ``check`` under "competition" on bench histories 0-31 (in 4 spawned
+     processes, each on the card, started with the phase and running
+     beside (a), (b) and (d): the CPU DFS that some histories reach
+     takes ~100 s each), with phase 5's verdict wherever phase 5
+     decided, save on histories 23 and 27, which the competition leaves
+     unknown at its default async rungs (256, 1024) as the JAX package's
+     does (tests/test_torch_checker.py), never contradicting phase 6's
+     sweep, with the count of histories each engine decided; (d) "tpu"
+     with ``{"capacity": (1024, 2048, 4096), "fast": True}`` on phase
+     8's 2,000-op history (True) and bench histories 3 and 7 (refuted at
+     the sweep's ops); (e) ``stream_check`` in 64-op epochs, fast under
+     "fused" at (1024, 4096), on the (d) histories (True at finalize; 3
+     and 7 refuted before their last op, at the sweep's op), then at the
+     streaming checker's default capacity on bench histories 0-31 (in
+     the same 4 processes) against the post-hoc ladder at the same
+     capacity: wherever the stream decides, the same verdict, op and
+     ``parity_digest`` as the ladder with its CPU fallback; a stream
+     left unknown (its exact engine at 256 rows loses rows on some
+     corrupted bench histories) must be one that the ladder's rungs,
+     without the fallback, leave unknown too.  The keep mask and the
+     fused update must launch in (a), (d) and (e). The checks of (a)-(d) go through
+     ``checker.check_safe``, which turns an exception (a kernel that
+     fails to build or launch) into a result with an ``error``; any
+     ``error`` in a result fails the run (a stream raises instead).
 
 It prints a ``{"kernels": [...]}`` JSON line (launches from the mesh
-ladder of phase 7, and from phase 8 as ``single_history_launches``;
+ladder of phase 7, from phase 8 as ``single_history_launches`` and from
+phase 9's sub-phases as ``checker_launches``;
 times at the G = 32 shapes, and as ``single_<rows>_ms`` at phase 8's
 captured shapes) and the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  It exits non-zero,
@@ -123,10 +163,12 @@ one card.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 N_HISTORIES = 128
 OPS_PER_HISTORY = 100
@@ -148,6 +190,7 @@ SINGLE_OPS = 10_000
 SINGLE_PROCS = 32
 SINGLE_INFO = 0.05
 SINGLE_CAPS = (1024, 4096)
+SINGLE_DEFAULT_LADDER = (128, 1024, 4096)
 SINGLE_SWEEP_CONFIGS = CPU_MAX_CONFIGS
 GROWTH_STEPS = 4
 EXACT_COST_BARRIERS = 16
@@ -158,6 +201,22 @@ SPILL_BUDGET_MB = 30.0
 DECIDED_BENCH = (3, 7)
 SYNC_LANES = 32
 EXACT_CAPS = (2048,)
+
+#: Phase 9: the checker front end: histories per-history checks run on,
+#: the "tpu" algorithm's kernel-opts, the streams' epoch size and fast
+#: ladder, and the post-hoc ladder the default-capacity streams are
+#: held to (the streaming checker's default capacity).
+CHECKER_HISTORIES = 32
+CHECKER_WORKERS = 4
+TPU_OPTS = {"capacity": (1024, 2048, 4096), "fast": True}
+STREAM_FEED_OPS = 64
+STREAM_CAPS = (1024, 4096)
+STREAM_POSTHOC_CAPS = (64, 256)
+#: Bench histories that phase 5's ladder refutes and the competition,
+#: at its default kernel-opts, leaves unknown: its async rungs (256,
+#: 1024) lose rows, the CPU DFS exhausts its budget and the chunked
+#: exact rungs lose rows, as the JAX package's competition does on them.
+COMPETITION_UNDECIDED = (23, 27)
 
 #: H100 SXM published peaks (dense): HBM bytes/s, and the 32-bit
 #: non-tensor rate used for the kernels' integer compare/hash work.
@@ -177,6 +236,13 @@ def _smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return r.stdout.strip().splitlines()[0]
+
+
+def _launch_counts(wk) -> dict:
+    """Each kernel's launches since the last ``wk.reset_counts()``."""
+    return {"keep_mask": wk.KEEP_LAUNCHES,
+            "fused_frontier_update": wk.FUSED_LAUNCHES,
+            "mesh_exchange": wk.EXCHANGE_LAUNCHES}
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -828,9 +894,7 @@ def run_mesh_ladder(batch, wk, mesh_mod, model, hists, plain_results):
         mesh=mesh_mod.make_mesh(MESH_SHARDS),
     )
     seconds = time.perf_counter() - t0
-    counts = {"keep_mask": wk.KEEP_LAUNCHES,
-              "fused_frontier_update": wk.FUSED_LAUNCHES,
-              "mesh_exchange": wk.EXCHANGE_LAUNCHES}
+    counts = _launch_counts(wk)
     rescue = stats.get("mesh_rescue")
     print(f"mesh_ladder: {seconds:.3f} s, launches {counts}", flush=True)
     print("mesh_rescue: " + json.dumps(
@@ -1037,9 +1101,9 @@ def run_single_history(batch, wk, wgl, sharded, mesh_mod, genhist, model,
     capture = _Capture(wk)
     wk.reset_counts()
     t_phase = time.perf_counter()
-    # (a) the greedy walk (a witness), the fast engine under "fused",
-    # then the default ladder; a frontier engine may lose rows on this
-    # history (its closures outgrow 4096 rows), never refute it
+    # (a) the greedy walk (a witness), then the fast engine under
+    # "fused", which may lose rows on this history (its closures outgrow
+    # 4096 rows), never refute it
     t0 = time.perf_counter()
     g = wgl.greedy_analysis(model, hist, device="cuda")
     print(f"single[valid-greedy]: {g['valid?']} in "
@@ -1047,12 +1111,10 @@ def run_single_history(batch, wk, wgl, sharded, mesh_mod, genhist, model,
           flush=True)
     if g["valid?"] is not True:
         raise AssertionError(f"the greedy walk answered {g['valid?']}")
-    for tag, kw in (("valid-fast-fused", dict(capacity=SINGLE_CAPS,
-                                              dedup_backend="fused")),
-                    ("valid-fast-default-ladder", {})):
-        r = _single(wgl, wk, model, hist, tag, B, fast=True, **kw)
-        if r["valid?"] is False:
-            raise AssertionError("the valid history was refuted")
+    r = _single(wgl, wk, model, hist, "valid-fast-fused", B, fast=True,
+                capacity=SINGLE_CAPS, dedup_backend="fused")
+    if r["valid?"] is False:
+        raise AssertionError("the valid history was refuted")
     # a history the frontier engines decide: True, and unchanged by
     # spill (without a budget, an overflowing chunk slices and bisects)
     # (spill=False keeps a copy of its fused calls' inputs, one per
@@ -1068,8 +1130,18 @@ def run_single_history(batch, wk, wgl, sharded, mesh_mod, genhist, model,
         finally:
             wk.fused_frontier_update = capture.fn
         decided[tag] = r["valid?"]
+    # the same history on the fast engine's default ladder: it climbs
+    # from 128 rows (below the fused floor) through 1024 to 4096
+    f0 = wk.FUSED_LAUNCHES
+    r = _single(wgl, wk, model, h2, "decided-valid-default-ladder", B2,
+                fast=True)
+    decided["decided-valid-default-ladder"] = r["valid?"]
+    climbed = ((r.get("kernel") or {}).get("capacity"), wk.FUSED_LAUNCHES - f0)
     if set(decided.values()) != {True}:
         raise AssertionError(f"the decided history gave {decided}")
+    if climbed[0] != SINGLE_DEFAULT_LADDER[-1] or climbed[1] <= 0:
+        raise AssertionError(f"the default ladder ended at {climbed[0]} rows "
+                             f"with {climbed[1]} fused launches")
     # why config 2 stays undecided: the exact union of the fast
     # engine's survivors over its first barriers, in 4096-row slices
     _growth_and_exact_cost(wgl, model, hist, bad)
@@ -1152,9 +1224,7 @@ def run_single_history(batch, wk, wgl, sharded, mesh_mod, genhist, model,
     if mesh_res != chunked or mesh_res["valid?"] != cpu_sample[k]["valid?"]:
         raise AssertionError("the mesh fallback differs from wgl.analysis "
                              "or from the exact sweep")
-    counts = {"keep_mask": wk.KEEP_LAUNCHES,
-              "fused_frontier_update": wk.FUSED_LAUNCHES,
-              "mesh_exchange": wk.EXCHANGE_LAUNCHES}
+    counts = _launch_counts(wk)
     print(f"single: phase {time.perf_counter() - t_phase:.3f} s, launches "
           f"{counts}", flush=True)
     for name in ("keep_mask", "fused_frontier_update"):
@@ -1188,6 +1258,350 @@ def _agree(tag, fast, exact, sweep) -> None:
                              "disagrees with the sweep")
 
 
+def _keyed(independent, hists, keys) -> list[dict]:
+    """One history of the bench histories of ``keys``, key by key, each
+    value wrapped with ``independent.tuple_`` (as
+    tests/test_parallel.py builds its 4-key history)."""
+    out = []
+    t = 0
+    for k in keys:
+        for o in hists[k]:
+            t += 1
+            out.append({**o, "value": independent.tuple_(k, o["value"]),
+                        "time": t})
+    return [{**o, "index": i} for i, o in enumerate(out)]
+
+
+def _errors(x, where: str = "") -> list[str]:
+    """Where a result tree holds an ``error`` (a swallowed exception)."""
+    out = []
+    if isinstance(x, dict):
+        if x.get("error") is not None:
+            out.append(where or "/")
+        for k, v in x.items():
+            out += _errors(v, f"{where}/{k}")
+    elif isinstance(x, list):
+        for i, v in enumerate(x):
+            out += _errors(v, f"{where}/{i}")
+    return out
+
+
+def _op_index(res) -> int | None:
+    return (res.get("op") or {}).get("index")
+
+
+def _pool_worker_init() -> None:
+    """Phase 9's spawned processes share the host's cores: one torch
+    thread each."""
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _competition_check(hist) -> tuple[dict, dict, float]:
+    """Phase 9(c)'s task in a spawned process: ``check_safe`` of the
+    "competition" checker on one history, on the card, with the launch
+    counts and the seconds of that check."""
+    from jepsen_tpu_torch import checker
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.ops import wide_kernel as wk
+
+    wk.reset_counts()
+    t0 = time.perf_counter()
+    r = checker.check_safe(lin.linearizable(
+        {"model": "cas-register", "algorithm": "competition"}), {}, hist)
+    return r, _launch_counts(wk), time.perf_counter() - t0
+
+
+def _default_stream(hist) -> tuple[dict, str | None, dict]:
+    """Phase 9(e)'s task in a spawned process: ``stream_check`` of one
+    history at the streaming checker's default capacity, on the card,
+    with the stream's parity digest and the launch counts of the
+    stream."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.checker import streaming
+    from jepsen_tpu_torch.ops import wide_kernel as wk
+
+    wk.reset_counts()
+    rs, sc = streaming.stream_check(m.CASRegister(None), hist,
+                                    feed_ops=STREAM_FEED_OPS)
+    bundle = sc.evidence()
+    return (rs, None if bundle is None else streaming.parity_digest(bundle),
+            _launch_counts(wk))
+
+
+def run_checkers(batch, wk, mesh_mod, genhist, model, hists, ladder_results,
+                 cpu_sample) -> dict:
+    """Phase 9: the checker front end on the card (see the module
+    docstring); returns the keep mask's, the fused update's and the
+    exchange's launch counts of each sub-phase."""
+    from jepsen_tpu_torch import checker, independent
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.checker import streaming
+    from jepsen_tpu_torch.obs import provenance
+
+    def no_errors(tag, res) -> None:
+        errs = _errors(res)
+        if errs:
+            raise AssertionError(f"checkers[{tag}]: errors at {errs[:5]}")
+
+    class CountingLinearizable(lin.Linearizable):
+        """Counts the check_batch calls and the ones that returned."""
+
+        def __init__(self, opts):
+            super().__init__(opts)
+            self.calls = self.returned = 0
+
+        def check_batch(self, test, histories, opts):
+            self.calls += 1
+            out = super().check_batch(test, histories, opts)
+            self.returned += 1
+            return out
+
+    launches: dict = {}
+    seconds: dict = {}
+    undecided = [k for k, r in enumerate(ladder_results)
+                 if r["valid?"] == "unknown"]
+    pool = batch.confirm_pool()
+    sweeps = {k: pool.submit(batch._confirm_worker.sweep, model, hists[k],
+                             RESCUE_MAX_CONFIGS) for k in undecided}
+    t_phase = time.perf_counter()
+
+    # (c) and the default-capacity streams of (e) run in CHECKER_WORKERS
+    # spawned processes, each on the card, side by side with (a), (b),
+    # (d) and the fast streams in this process: their host work is
+    # Python (the CPU DFS the competition reaches on some histories takes
+    # 5,000,000 nodes, ~100 s each; an exact stream is host-bound)
+    ex = ProcessPoolExecutor(max_workers=CHECKER_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_pool_worker_init)
+    try:
+        comp_futs = [ex.submit(_competition_check, hh)
+                     for hh in hists[:CHECKER_HISTORIES]]
+        stream_futs = [ex.submit(_default_stream, hh)
+                       for hh in hists[:CHECKER_HISTORIES]]
+
+        # (a) the batch path: every bench history as one key of one
+        # history, through independent.checker and the competition's
+        # check_batch
+        keyed = _keyed(independent, hists, range(N_HISTORIES))
+        chk = CountingLinearizable({"model": "cas-register",
+                                    "algorithm": "competition",
+                                    "kernel-opts": {"capacity": CAPS}})
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        res = checker.check_safe(independent.checker(chk), {}, keyed)
+        seconds["a"] = time.perf_counter() - t0
+        launches["a"] = _launch_counts(wk)
+        no_errors("a", res)
+        if (chk.calls, chk.returned) != (1, 1):
+            raise AssertionError(f"check_batch called {chk.calls} times, "
+                                 f"returned {chk.returned} times (expected "
+                                 "once)")
+        sweep = {k: f.result() for k, f in sweeps.items()}
+        wrong = []
+        rows = [[k, res["results"][k]["valid?"], sweep[k]["valid?"]]
+                for k in undecided]
+        for k in range(N_HISTORIES):
+            got = res["results"][k]["valid?"]
+            want = ladder_results[k]["valid?"]
+            if want == "unknown":
+                want = sweep[k]["valid?"]
+                if got != "unknown" and want != "unknown" and got != want:
+                    wrong.append([k, got, want])
+            elif got != want:
+                wrong.append([k, got, want])
+        print(f"checkers[a]: {len(keyed) // 2} invoke/complete pairs, "
+              f"{N_HISTORIES} keys, valid? {res['valid?']}, "
+              f"{len(res['failures'])} failures, check_batch calls "
+              f"{chk.calls}, phase-5 unknowns [key, checker, sweep] "
+              f"{json.dumps(rows)}, {seconds['a']:.3f} s, launches "
+              f"{launches['a']}", flush=True)
+        if wrong:
+            raise AssertionError(f"checkers[a]: [key, checker, phase 5 or "
+                                 f"sweep] disagreeing {wrong}")
+
+        # (b) the keys phase 5 left unknown, with the mesh rescue
+        if not undecided:
+            raise AssertionError("phase 5 left no key unknown: no mesh key "
+                                 "to run")
+        mchk = CountingLinearizable({
+            "model": "cas-register", "algorithm": "competition",
+            "kernel-opts": {"capacity": CAPS,
+                            "mesh": mesh_mod.make_mesh(MESH_SHARDS)}})
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        resb = checker.check_safe(independent.checker(mchk), {},
+                                  _keyed(independent, hists, undecided))
+        seconds["b"] = time.perf_counter() - t0
+        launches["b"] = _launch_counts(wk)
+        no_errors("b", resb)
+        rows = [[k, resb["results"][k]["valid?"], sweep[k]["valid?"]]
+                for k in undecided]
+        print(f"checkers[b]: mesh keys [key, checker, sweep] "
+              f"{json.dumps(rows)}, check_batch calls {mchk.calls}, "
+              f"{seconds['b']:.3f} s, launches {launches['b']}", flush=True)
+        if mchk.returned != 1 or launches["b"]["mesh_exchange"] <= 0:
+            raise AssertionError("checkers[b]: the batch path or the exchange "
+                                 "did not run")
+        if any("unknown" not in (g, w) and g != w for _k, g, w in rows):
+            raise AssertionError("checkers[b]: a mesh key disagrees with the "
+                                 "sweep")
+
+        # (d) "tpu": the chunked engine, fast, from the checker
+        h2 = genhist.valid_register_history(SPILL_OPS, SINGLE_PROCS, seed=1,
+                                            info_rate=SINGLE_INFO)
+        refuted = {i: (hists[i], _op_index(cpu_sample[i]))
+                   for i in DECIDED_BENCH}
+        tchk = lin.linearizable({"model": "cas-register", "algorithm": "tpu",
+                                 "kernel-opts": TPU_OPTS})
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        r2 = checker.check_safe(tchk, {}, h2)
+        rd = {i: checker.check_safe(tchk, {}, hh)
+              for i, (hh, _op) in refuted.items()}
+        seconds["d"] = time.perf_counter() - t0
+        launches["d"] = _launch_counts(wk)
+        no_errors("d", [r2, *rd.values()])
+        got = {str(SPILL_OPS): r2["valid?"],
+               **{i: [r["valid?"], _op_index(r)] for i, r in rd.items()}}
+        print(f"checkers[d]: tpu {json.dumps(TPU_OPTS)}: {json.dumps(got)} "
+              f"(sweep ops "
+              f"{json.dumps({i: op for i, (_h, op) in refuted.items()})}), "
+              f"{seconds['d']:.3f} s, launches {launches['d']}", flush=True)
+        if r2["valid?"] is not True or any(
+                got[i] != [False, op] for i, (_h, op) in refuted.items()):
+            raise AssertionError("checkers[d]: a tpu verdict is not the "
+                                 "sweep's")
+
+        # (e) streaming: the (d) histories fast under "fused" here, bench
+        # histories 0-31 at the default capacity in the workers
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        kw = dict(feed_ops=STREAM_FEED_OPS, capacity=STREAM_CAPS, fast=True,
+                  dedup_backend="fused")
+        rs, sc = streaming.stream_check(model, h2, **kw)
+        streamed = {str(SPILL_OPS): [rs["valid?"], sc.detection]}
+        if rs["valid?"] is not True:
+            raise AssertionError(f"checkers[e]: the {SPILL_OPS}-op stream "
+                                 f"gave {rs['valid?']}")
+        for i, (hh, op) in refuted.items():
+            rs, sc = streaming.stream_check(model, hh, **kw)
+            det = sc.detection or {}
+            streamed[i] = [rs["valid?"], _op_index(rs), det.get("ops"),
+                           len(hh)]
+            if (rs["valid?"], _op_index(rs)) != (False, op) or not (
+                    det.get("ops", len(hh)) < len(hh)):
+                raise AssertionError(f"checkers[e]: history {i} streamed to "
+                                     f"{streamed[i]}, sweep op {op}")
+        seconds["e_fast"] = time.perf_counter() - t0
+        launches["e"] = _launch_counts(wk)
+        # the post-hoc ladder at the streams' capacity: with its CPU
+        # fallback (what the decided streams are held to: verdict, op and
+        # parity digest), and without it (where it decides, a stream must
+        # too: the streams' exact engine loses rows only where the
+        # ladder's rungs do)
+        t0 = time.perf_counter()
+        post = batch.batch_analysis(model, hists[:CHECKER_HISTORIES],
+                                    capacity=STREAM_POSTHOC_CAPS,
+                                    device="cuda")
+        post_rungs = batch.batch_analysis(model, hists[:CHECKER_HISTORIES],
+                                          capacity=STREAM_POSTHOC_CAPS,
+                                          cpu_fallback=False, device="cuda")
+        seconds["e_posthoc"] = time.perf_counter() - t0
+
+        # (c) the competition, one history per task: phase 5's verdict
+        # wherever phase 5 decided, save on the histories named in
+        # COMPETITION_UNDECIDED (left unknown by the JAX package's
+        # competition too), and never the sweep's contrary
+        engines: dict = {}
+        slow = []  # [history, engine, verdict, seconds] past the greedy walk
+        wrong, excused = [], []
+        launches["c"] = dict.fromkeys(launches["a"], 0)
+        for i, fut in enumerate(comp_futs):
+            r, n, sec = fut.result()
+            no_errors(f"c-{i}", r)
+            for name, c in n.items():
+                launches["c"][name] += c
+            eng = r["provenance"]["engine"]["engine"]
+            engines[eng] = engines.get(eng, 0) + 1
+            if eng != "greedy":
+                slow.append([i, eng, r["valid?"], round(sec, 3)])
+            want5 = ladder_results[i]["valid?"]
+            if want5 != "unknown" and r["valid?"] != want5:
+                if r["valid?"] == "unknown" and i in COMPETITION_UNDECIDED:
+                    excused.append([i, want5])
+                else:
+                    wrong.append([i, r["valid?"], "phase 5", want5])
+            want6 = cpu_sample[i]["valid?"]
+            if "unknown" not in (r["valid?"], want6) and r["valid?"] != want6:
+                wrong.append([i, r["valid?"], "sweep", want6])
+        seconds["c"] = time.perf_counter() - t_phase
+        print(f"checkers[c]: competition on bench histories 0-"
+              f"{CHECKER_HISTORIES - 1} ({CHECKER_WORKERS} processes): "
+              f"decided by engine {json.dumps(engines)}, "
+              f"{seconds['c']:.3f} s from the phase's start, launches "
+              f"{launches['c']}; past the greedy walk [history, engine, "
+              f"verdict, seconds] {json.dumps(slow)}; unknown where phase 5 "
+              f"decided, as in the JAX package [history, phase 5] "
+              f"{json.dumps(excused)}", flush=True)
+        if wrong:
+            raise AssertionError(f"checkers[c]: [history, competition, against, "
+                                 f"verdict] disagreeing {wrong}")
+
+        # (e) the default-capacity streams against the post-hoc ladders
+        mismatch, lost, undecided_streams = [], [], []
+        for i, fut in enumerate(stream_futs):
+            rs, digest, n = fut.result()
+            no_errors(f"e-{i}", rs)
+            for name, c in n.items():
+                launches["e"][name] += c
+            if rs["valid?"] == "unknown":
+                undecided_streams.append([i, post[i]["valid?"],
+                                          post_rungs[i]["valid?"]])
+                if post_rungs[i]["valid?"] != "unknown":
+                    lost.append(i)
+            elif (rs["valid?"], _op_index(rs)) != (
+                    post[i]["valid?"], _op_index(post[i])) or digest != (
+                    streaming.parity_digest(provenance.build_bundle(
+                        history=hists[i], result=post[i], source="posthoc",
+                        model=model, checker="linearizable"))):
+                mismatch.append([i, rs["valid?"], _op_index(rs),
+                                 post[i]["valid?"], _op_index(post[i])])
+        seconds["e"] = time.perf_counter() - t_phase
+        print(f"checkers[e]: fast fused streams (feed {STREAM_FEED_OPS} ops, "
+              f"capacity {list(STREAM_CAPS)}) [verdict, op, ops at "
+              f"detection, ops]: {json.dumps(streamed, default=str)} "
+              f"({seconds['e_fast']:.3f} s); default-capacity streams of "
+              f"bench histories 0-{CHECKER_HISTORIES - 1} "
+              f"({CHECKER_WORKERS} processes) against the post-hoc ladder at "
+              f"{list(STREAM_POSTHOC_CAPS)} ({seconds['e_posthoc']:.3f} s for "
+              f"both ladders): {CHECKER_HISTORIES - len(undecided_streams)} "
+              f"streams decided, {len(mismatch)} of them with another "
+              f"verdict, op or parity digest {mismatch}; undecided streams "
+              f"[history, ladder, ladder without CPU fallback] "
+              f"{json.dumps(undecided_streams)}, of them decided by the "
+              f"ladder's rungs {lost}; {seconds['e']:.3f} s from the "
+              f"phase's start, launches {launches['e']}", flush=True)
+        if mismatch or lost:
+            raise AssertionError(f"checkers[e]: stream and post-hoc "
+                                 f"mismatching {mismatch}, unknown where the "
+                                 f"ladder's rungs decided {lost}")
+    finally:
+        ex.shutdown(cancel_futures=True)
+
+    for sub in ("a", "d", "e"):
+        for name in ("keep_mask", "fused_frontier_update"):
+            if launches[sub][name] <= 0:
+                raise AssertionError(f"checkers[{sub}]: {name} was not "
+                                     "launched")
+    print(f"checkers: phase {time.perf_counter() - t_phase:.3f} s ((c) and "
+          f"(e)'s default streams beside (a), (b), (d)), seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}",
+          flush=True)
+    return launches
+
+
 def run_ladder(batch, wk, m, genhist):
     """Phase 5: the bench ladder on the card; returns (model, results,
     histories, stats, seconds, launch counts, the ``_Capture`` of its
@@ -1215,8 +1629,7 @@ def run_ladder(batch, wk, m, genhist):
     finally:
         wk.fused_frontier_update = capture.fn
     seconds = time.perf_counter() - t0
-    counts = {"keep_mask": wk.KEEP_LAUNCHES,
-              "fused_frontier_update": wk.FUSED_LAUNCHES}
+    counts = _launch_counts(wk)
     return model, results, hists, stats, seconds, counts, capture
 
 
@@ -1337,8 +1750,8 @@ def main(argv=None) -> int:
           f"({total_ops} ops), {total_ops / seconds:.1f} ops/s, "
           f"unknowns {unknowns}, confirm drain "
           f"{stats['confirm_drain_s']:.3f} s, launches {counts}", flush=True)
-    for name, c in counts.items():
-        if c <= 0:
+    for name in ("keep_mask", "fused_frontier_update"):
+        if counts[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     check_captured(wk, capture, "captured-ladder")
     del capture
@@ -1365,6 +1778,8 @@ def main(argv=None) -> int:
     check_mesh_engine(batch, sharded, mesh_mod, model, hists, results)
     single_counts, single_measured = run_single_history(
         batch, wk, wgl, sharded, mesh_mod, genhist, model, hists, results, cpu)
+    checker_counts = run_checkers(batch, wk, mesh_mod, genhist, model, hists,
+                                  results, cpu)
     if args.profile:
         profile_ladder(batch, model, hists)
     batch.shutdown_confirm_pool()
@@ -1386,6 +1801,7 @@ def main(argv=None) -> int:
          "bound_by": bench[name]["bound_by"],
          "library_ms": bench[name].get("library_ms"),
          "single_history_launches": single_counts[name],
+         "checker_launches": {sub: c[name] for sub, c in checker_counts.items()},
          **({f"single_{c}_ms": single_measured[c][name]["ms"]
              for c in SPILL_CAPS} if name in single_measured[SPILL_CAPS[0]]
             else {}),

@@ -1,8 +1,10 @@
 """The PyTorch/CUDA port of the jepsen_tpu linearizability checker.
 
 A second package beside ``jepsen_tpu``: the batched Wing–Gong–Lowe
-capacity ladder (``parallel.batch.batch_analysis``) and the chunked
-single-history check (``ops.wgl.analysis``) rebuilt on PyTorch, with the
+capacity ladder (``parallel.batch.batch_analysis``), the chunked
+single-history check (``ops.wgl.analysis``) and the checkers a Jepsen
+test calls (``checker.linearizable``, ``independent.checker``,
+``checker.streaming``) rebuilt on PyTorch, with the
 fused wide-stage frontier update written by hand in CUDA for Hopper
 (``ops/csrc/wide_kernel.cu``).  The JAX package is the reference
 the port is tested against; this package imports neither ``jax`` nor
@@ -11,6 +13,14 @@ modules it needs (history, models, the exact CPU sweep).
 
 Layer map:
 
+  checker          the Checker protocol (check_safe, compose, stats, ...)
+  checker/linearizable  the linearizable checker: "wgl", "sweep",
+                   "tpu" (the chunked engine) and "competition", and
+                   check_batch over the batched ladder
+  independent      per-key subhistories; their check_batch as lanes
+  checker/streaming  the online checker over scan_barrier_range
+  obs/provenance   decision paths, evidence bundles and their digests
+  store            a test's directory, atomic JSON and history writes
   parallel/batch   the capacity ladder: greedy rung, async or sync
                    capacity rungs (carried-frontier resume on async),
                    exact stages, worker-process confirmation of
@@ -25,7 +35,8 @@ Layer map:
                    domination prunes, compaction
   ops/wide_kernel  wrappers of the CUDA kernels and their plain versions
   models/tensor    elementwise torch model steps
-  checker/wgl_cpu  the exact CPU configuration-set sweep (the oracle)
+  checker/wgl_cpu  the CPU oracles: DFS, the exact configuration-set
+                   sweep, the greedy walk, the brute-force enumerator
 
 This ``__init__`` imports no torch: the spawned confirmation workers
 import the package and must never initialise CUDA.

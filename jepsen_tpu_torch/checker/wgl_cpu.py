@@ -1,10 +1,21 @@
-"""The exact CPU configuration-set sweep: the oracle that confirms the
-device engines' refutations.
+"""CPU linearizability checkers (Wing–Gong–Lowe family): the oracles of
+the device engines.
 
-A copy of the JAX package's ``checker/wgl_cpu`` sweep (its ``prepare``,
-``_barrier_snapshots`` and ``sweep_analysis``), so that the port and its
-spawned confirmation workers never import ``jepsen_tpu``.  Pure Python:
-no torch, no numpy arrays on the hot path.
+A copy of the JAX package's ``checker/wgl_cpu``, so that the port and
+its spawned confirmation workers never import ``jepsen_tpu``.  Pure
+Python: no torch, no numpy arrays on the hot path.  Three engines over
+the same prepared event stream:
+
+  * ``dfs_analysis`` — depth-first search with a visited-set cache
+    (knossos's WGL; the "wgl" algorithm and the default ``analysis``);
+  * ``sweep_analysis`` — the configuration-set sweep with domination
+    pruning, the algorithm the device engines vectorize, which confirms
+    their refutations;
+  * ``brute_analysis`` — every linearization order of a tiny history,
+    for validating the other two.
+
+``greedy_walk`` is the one-config walk (returning op first, never
+back): True is a constructive witness, and ``record=`` receives it.
 
 Op semantics (knossos convention):
 
@@ -17,8 +28,8 @@ Op semantics (knossos convention):
 
 Crashed ops are canonicalized into (f, value) groups tracked as fired
 counts, and linearization points are chosen only at return barriers
-(both shared with the device engines).  The sweep answers ``"unknown"``
-on budget exhaustion, never a wrong verdict.
+(both shared with the device engines).  The searches answer
+``"unknown"`` on budget exhaustion, never a wrong verdict.
 """
 
 from __future__ import annotations
@@ -115,14 +126,190 @@ def _barrier_snapshots(events, eff_ops, crashed):
 
 
 # ---------------------------------------------------------------------------
+# DFS engine (knossos-equivalent)
+# ---------------------------------------------------------------------------
+
+
+def dfs_analysis(
+    model: m.Model,
+    history: Sequence[dict],
+    max_visited: int = 5_000_000,
+) -> dict:
+    """Decide linearizability by depth-first search over configurations.
+
+    A node is ``(barrier_index, state, fired_ok, fired_crashed)``.  At each
+    barrier the returning op must be fired; if it already is, we advance
+    (barrier compression); otherwise we branch over firing any available
+    open op, greedy-first.  A visited cache makes re-exploration O(1).
+
+    Returns knossos-shaped maps: ``{"valid?": True}``, or ``{"valid?":
+    False, "op": ..., "configs": [...]}`` with the furthest barrier op
+    reached, or ``{"valid?": "unknown", "cause": ...}`` past the node
+    budget.
+    """
+    return _dfs_analysis(model, history, max_visited, {})
+
+
+def _dfs_analysis(model, history, max_visited, stats: dict) -> dict:
+    events, eff_ops, crashed = prepare(model, history)
+    barriers, group_ops = _barrier_snapshots(events, eff_ops, crashed)
+    n_barriers = len(barriers)
+    if n_barriers == 0:
+        return {"valid?": True, "configs": [{"model": model}]}
+
+    # Fired-crash multisets as fixed-vocabulary count tuples (same form
+    # as the sweep).
+    groups, gidx, group_op_list, empty = _group_vocab(group_ops)
+    max_visited = _g_scaled(max_visited, len(groups))
+    start = (0, model, frozenset(), empty)
+    stack = [start]
+    visited = {start}
+    deepest = 0
+    deepest_sample: list = []
+
+    while stack:
+        b, state, fok, fcr = stack.pop()
+        if b >= n_barriers:
+            stats.update(visited=len(visited), barriers=n_barriers)
+            return {"valid?": True, "configs": [{"model": state}]}
+        if b > deepest:
+            deepest = b
+            deepest_sample = [(state, fok, fcr)]
+        _pos, i, open_ok, open_crashed = barriers[b]
+
+        if i in fok:
+            # Barrier satisfied: strip i and advance.
+            nxt = (b + 1, state, fok - {i}, fcr)
+            if nxt not in visited:
+                visited.add(nxt)
+                stack.append(nxt)
+            continue
+
+        succs = []
+        # Fire another open ok op (enabling move).
+        for j in open_ok:
+            if j in fok or j == i:
+                continue
+            s2 = state.step(eff_ops[j])
+            if not m.is_inconsistent(s2):
+                succs.append((b, s2, fok | {j}, fcr))
+        # Fire one crashed op from an available group.
+        for g, open_count in open_crashed:
+            gi = gidx[g]
+            if fcr[gi] >= open_count:
+                continue
+            s2 = state.step(group_op_list[gi])
+            if not m.is_inconsistent(s2):
+                fcr2 = fcr[:gi] + (fcr[gi] + 1,) + fcr[gi + 1 :]
+                succs.append((b, s2, fok, fcr2))
+        # Fire the returning op itself — pushed last so DFS tries it first.
+        s2 = state.step(eff_ops[i])
+        if not m.is_inconsistent(s2):
+            succs.append((b, s2, fok | {i}, fcr))
+
+        for nxt in succs:
+            if nxt not in visited:
+                visited.add(nxt)
+                stack.append(nxt)
+        if len(visited) > max_visited:
+            stats.update(visited=len(visited), barriers=n_barriers, deepest=deepest)
+            return {
+                "valid?": "unknown",
+                "cause": f"visited more than {max_visited} configurations",
+                "op": history[barriers[deepest][1]],
+            }
+
+    stats.update(visited=len(visited), barriers=n_barriers, deepest=deepest)
+    return {
+        "valid?": False,
+        "op": history[barriers[deepest][1]],
+        "configs": [
+            {"model": st, "pending": sorted(set(barriers[deepest][2]) - fok)}
+            for st, fok, fcr in deepest_sample[:10]
+        ],
+    }
+
+
+def greedy_walk(model: m.Model, history: Sequence[dict],
+                max_steps: int | None = None,
+                record: list | None = None) -> bool | None:
+    """Speculative single-config greedy walk (one beam lane, returning op
+    first, no backtracking).  Returns ``True`` when the walk completes:
+    that is a full linearization, a constructive witness, so the verdict
+    is exact.  Returns ``None`` when the walk sticks (no greedy-consistent
+    move, or ``max_steps`` fired): a stuck walk never refutes, because
+    only search proves the absence of witnesses.
+
+    ``record``, when given, receives the fired *effective* ops in fire
+    order: on a ``True`` return it is the full linearization, the witness
+    ``obs.provenance`` puts in evidence bundles.
+    """
+    events, eff_ops, crashed = prepare(model, history)
+    barriers, group_ops = _barrier_snapshots(events, eff_ops, crashed)
+    n_barriers = len(barriers)
+    if n_barriers == 0:
+        return True
+    groups, gidx, group_op_list, empty = _group_vocab(group_ops)
+    # Every fired op strictly grows fok or a crashed count, both bounded,
+    # so the walk terminates without the cap; the cap bounds worst-case
+    # latency anyway.
+    cap = max_steps if max_steps is not None else 4 * len(history) + 64
+    state, fok, fcr = model, frozenset(), empty
+    b = steps = 0
+    while b < n_barriers:
+        _pos, i, open_ok, open_crashed = barriers[b]
+        if i in fok:
+            fok = fok - {i}
+            b += 1
+            continue
+        steps += 1
+        if steps > cap:
+            return None
+        # Greedy: fire the returning op itself first.
+        s2 = state.step(eff_ops[i])
+        if not m.is_inconsistent(s2):
+            state, fok = s2, fok | {i}
+            if record is not None:
+                record.append(eff_ops[i])
+            continue
+        # Enabling move: the first consistent open ok op, else the first
+        # available crashed group (same legality and order the DFS
+        # branches over — we just never come back).
+        for j in open_ok:
+            if j in fok or j == i:
+                continue
+            s2 = state.step(eff_ops[j])
+            if not m.is_inconsistent(s2):
+                state, fok = s2, fok | {j}
+                if record is not None:
+                    record.append(eff_ops[j])
+                break
+        else:
+            for g, open_count in open_crashed:
+                k = gidx[g]
+                if fcr[k] >= open_count:
+                    continue
+                s2 = state.step(group_op_list[k])
+                if not m.is_inconsistent(s2):
+                    state = s2
+                    fcr = fcr[:k] + (fcr[k] + 1,) + fcr[k + 1:]
+                    if record is not None:
+                        record.append(group_op_list[k])
+                    break
+            else:
+                return None  # stuck: every greedy move is inconsistent
+    return True
+
+
+# ---------------------------------------------------------------------------
 # Configuration-set sweep (the device engines' semantics oracle)
 # ---------------------------------------------------------------------------
 
 
 def _group_vocab(group_ops):
-    """Fixed group vocabulary: (groups, gidx, group_op_list, zero-count
-    tuple).  Count tuples are O(G) per config, so the sweep scales its
-    exploration budget by G — a group-heavy history answers "unknown"
+    """Fixed group vocabulary shared by the engines: (groups, gidx,
+    group_op_list, zero-count tuple).  Count tuples are O(G) per config,
+    so the engines scale their exploration budgets by G — a group-heavy history answers "unknown"
     early instead of chewing through gigabytes of wide tuples."""
     groups = list(group_ops)
     gidx = {g: k for k, g in enumerate(groups)}
@@ -278,3 +465,50 @@ def _sweep_analysis(model, history, max_configs, stop_at_index, stats: dict) -> 
                 "op": history[i],
             }
     return {"valid?": True, "configs": [{"model": st} for (st, _fok) in list(configs)[:10]]}
+
+
+#: Default engine, reference-equivalent ("wgl" algorithm).
+analysis = dfs_analysis
+
+
+# ---------------------------------------------------------------------------
+# Independent brute-force oracle (for validating the oracles themselves)
+# ---------------------------------------------------------------------------
+
+
+def brute_analysis(model: m.Model, history: Sequence[dict]) -> dict:
+    """Tiny-history oracle: enumerate every linearization order consistent
+    with real-time precedence and check sequential legality.  Exponential —
+    differential-test use only (≲ 12 ops)."""
+    events, eff_ops, _crashed = prepare(model, history)
+    call_pos: dict[int, int] = {}
+    ret_pos: dict[int, int] = {}
+    for pos, (kind, i) in enumerate(events):
+        if kind == CALL:
+            call_pos[i] = pos
+        else:
+            ret_pos[i] = pos
+    ids = sorted(call_pos)
+    must = [i for i in ids if i in ret_pos]  # ok ops must appear
+
+    # At each step, the next linearized op must be callable before the
+    # earliest unlinearized return: if ret(j) < call(i), j precedes i in
+    # every legal order.
+    def search(state, done: frozenset) -> bool:
+        remaining_must = [i for i in must if i not in done]
+        if not remaining_must:
+            return True
+        barrier = min(ret_pos[i] for i in remaining_must)
+        for i in ids:
+            if i in done:
+                continue
+            if call_pos[i] > barrier:
+                continue
+            s2 = state.step(eff_ops[i])
+            if m.is_inconsistent(s2):
+                continue
+            if search(s2, done | {i}):
+                return True
+        return False
+
+    return {"valid?": search(model, frozenset())}

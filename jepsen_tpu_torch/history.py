@@ -21,6 +21,9 @@ OK = "ok"
 FAIL = "fail"
 INFO = "info"
 
+#: The nemesis's process, which is not a client.
+NEMESIS = "nemesis"
+
 #: Packed int32 for "no value" (nil), far outside any realistic register
 #: value so the model steps can branch on it.
 NIL = np.int32(np.iinfo(np.int32).min)
@@ -39,6 +42,18 @@ def op(type: str, process, f, value=None, time: int | None = None, **extra):
 
 def is_invoke(o) -> bool:
     return o["type"] == INVOKE
+
+
+def is_ok(o) -> bool:
+    return o["type"] == OK
+
+
+def is_fail(o) -> bool:
+    return o["type"] == FAIL
+
+
+def is_info(o) -> bool:
+    return o["type"] == INFO
 
 
 def is_client_op(o) -> bool:
