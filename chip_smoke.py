@@ -143,6 +143,36 @@ checkout (one nvcc per source, all started together), and then:
      ``checker.check_safe``, which turns an exception (a kernel that
      fails to build or launch) into a result with an ``error``; any
      ``error`` in a result fails the run (a stream raises instead).
+ 10. Elle, the checkers of transactional histories, each sub-phase on a
+     line with its seconds and the card's name and power limit: (a)
+     BASELINE config 3, ``list_append()`` on the 10,000-transaction
+     history (50 keys, 16 processes, seed 5): True, with inference and
+     classification timed apart, and the "columns" and "loops" engines
+     equal on the graph (matrices, edge arrays, nodes, anomalies, every
+     edge's explanation) and the result (the graph is over
+     ``SCC_THRESHOLD``, so host SCC classifies it under either
+     backend); (b) its ``corrupt_wr(seed=6)`` copy: False with
+     anomaly-types ``["incompatible-order"]``; (c) config 3c, 1,024
+     per-key histories of 48 transactions (3 keys, 8 processes, seeds
+     1000+i) through one ``ListAppendChecker.check_batch`` with
+     ``elle.CYCLE_BACKEND`` "device", then "host": one call each, which
+     returns, and all 1,024 results equal; then the cycle phase on the
+     same graphs, on the card (its ``pad``, ``h2d``, ``closure`` and
+     ``d2h`` seconds, and the bucket's batched classification timed with
+     CUDA events beside its bf16 bound) and on host SCC, flags and hints
+     equal; (d) graphs of 128, 512 and 1,024 nodes with one planted G0,
+     G1c, G-single and G2 cycle each, and their acyclic controls:
+     ``classify_graph`` and ``check_graph`` on the card, on the CPU path
+     and on host SCC equal, flags and hints included; the closure on the
+     card equal to ``transitive_closure_np`` and to
+     ``transitive_closure_sharded`` on ``make_mesh(4)``; then
+     ``cycle_checker(realtime_analyzer, backend="device")`` True on a
+     real history (a realtime order has no cycle) and False once a
+     claimed order reverses one realtime pair; (e) the cycle phase on
+     both backends at 1,024 x 48, 256 x 128 and 64 x 700 transactions,
+     flags and hints equal, seconds recorded and nothing asserted on
+     speed.  An ``elle_json:`` line carries the seconds and the
+     crossover table.
 
 It prints a ``{"kernels": [...]}`` JSON line (launches from the mesh
 ladder of phase 7, from phase 8 as ``single_history_launches`` and from
@@ -218,10 +248,32 @@ STREAM_POSTHOC_CAPS = (64, 256)
 #: exact rungs lose rows, as the JAX package's competition does on them.
 COMPETITION_UNDECIDED = (23, 27)
 
+#: Phase 10: Elle.  BASELINE config 3 (tools/benchmarks.py:122-190):
+#: the 10k-transaction list-append history (50 keys, 16 processes, seed
+#: 5), its corrupted copy (seed 6) and the per-key shape 3c (1,024
+#: histories of 48 transactions over 3 keys and 8 processes, seeds
+#: 1000+i); the planted-cycle graph sizes; the crossover shapes
+#: (graphs, transactions each) and their seeds.
+ELLE_TXNS = 10_000
+ELLE_KEYS = 50
+ELLE_PROCS = 16
+ELLE_SEED = 5
+ELLE_CORRUPT_SEED = 6
+PER_KEY_GRAPHS = 1024
+PER_KEY_TXNS = 48
+PER_KEY_KEYS = 3
+PER_KEY_PROCS = 8
+PER_KEY_SEED = 1000
+PLANTED_SIZES = (128, 512, 1024)
+CROSSOVER = ((1024, 48), (256, 128), (64, 700))
+CROSSOVER_SEED = 3000
+
 #: H100 SXM published peaks (dense): HBM bytes/s, and the 32-bit
 #: non-tensor rate used for the kernels' integer compare/hash work.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+#: bf16 dense tensor-core rate (the closure's products).
+BF16_FLOPS_PER_S = 989e12
 
 #: int ops per hashed column per lane: one xor, then fmix32's 3
 #: xor-shifts (2 ops each) and 2 multiplies.
@@ -1602,6 +1654,343 @@ def run_checkers(batch, wk, mesh_mod, genhist, model, hists, ladder_results,
     return launches
 
 
+def _result_core(res) -> dict:
+    """An Elle result without its provenance block (which names the
+    cycle backend and the inference engine that ran)."""
+    return {k: v for k, v in res.items() if k != "provenance"}
+
+
+def _graph_diff(a, b) -> list[str]:
+    """Where two TxnGraphs differ: matrices, edge arrays, nodes,
+    anomalies, the rendered explanation of every edge."""
+    import numpy as np
+
+    bad = []
+    for et in ("ww", "wr", "rw", "extra"):
+        if not np.array_equal(getattr(a, et), getattr(b, et)):
+            bad.append(et)
+        if not np.array_equal(np.asarray(a.edge_arrays()[et]).reshape(-1, 2),
+                              np.asarray(b.edge_arrays()[et]).reshape(-1, 2)):
+            bad.append(f"edges[{et}]")
+    if [(x.op, x.invoke_index, x.ok) for x in a.nodes] != [
+            (y.op, y.invoke_index, y.ok) for y in b.nodes]:
+        bad.append("nodes")
+    if a.anomalies != b.anomalies:
+        bad.append("anomalies")
+    for et in ("ww", "wr", "rw"):
+        for i, j in np.asarray(a.edge_arrays()[et]).reshape(-1, 2):
+            if a.explain(et, int(i), int(j)) != b.explain(et, int(i), int(j)):
+                bad.append(f"explain[{et}]")
+                break
+    return bad
+
+
+def _planted_graphs(tg, hmod, n: int, seed: int):
+    """Two TxnGraphs of n nodes: random forward (acyclic) edges of every
+    type among nodes 12..n-1 plus one G0, one G1c, one G-single and one
+    G2 cycle on nodes 1-11; and the acyclic control, the same graph
+    without the planted cycles."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mats = []
+    for _ in range(4):
+        m = np.triu(rng.random((n, n)) < 2.0 / n, k=1)
+        m[:12, :] = False
+        m[:, :12] = False
+        mats.append(m)
+    control = [m.copy() for m in mats]
+    ww, wr, rw, _extra = mats
+    ww[1, 2] = ww[2, 1] = True          # G0
+    ww[4, 5] = wr[5, 4] = True          # G1c
+    ww[7, 8] = rw[8, 7] = True          # G-single
+    rw[10, 11] = rw[11, 10] = True      # G2: two rw edges
+    nodes = [tg.TxnNode(i, hmod.op(hmod.OK, i % 8, "txn", [], index=i), i, i, True)
+             for i in range(n)]
+
+    def graph(m):
+        return tg.TxnGraph(nodes=nodes, ww=m[0], wr=m[1], rw=m[2], extra=m[3],
+                           explanations={}, anomalies={})
+
+    return graph(mats), graph(control)
+
+
+def _claimed_order_analyzer(elle):
+    """The realtime analyzer plus a "claimed" relation that puts one op
+    before another which completed before it was invoked: a cycle
+    through realtime (a realtime order alone has none, being an
+    interval order)."""
+    import numpy as np
+
+    def analyzer(history):
+        nodes, rel, explain_rt = elle.realtime_analyzer(history)
+        rt = rel["realtime"]
+        claimed = np.zeros_like(rt)
+        pairs = np.argwhere(rt)
+        a, b = (int(x) for x in pairs[len(pairs) // 2])
+        claimed[b, a] = True
+
+        def explain(i, j, r):
+            if r == "claimed":
+                return (f"op {nodes[i].get('index')} is claimed to precede "
+                        f"op {nodes[j].get('index')}")
+            return explain_rt(i, j, r)
+
+        return nodes, {"realtime": rt, "claimed": claimed}, explain
+
+    return analyzer
+
+
+def run_elle(dev, card: str) -> dict:
+    """Phase 10: Elle on the card (see the module docstring); returns
+    its seconds and the crossover table."""
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch import history as hmod
+    from jepsen_tpu_torch.checker import elle, scc
+    from jepsen_tpu_torch.checker import txn_graph as tg
+    from jepsen_tpu_torch.ops import closure as cl
+    from jepsen_tpu_torch.parallel.mesh import make_mesh
+    from jepsen_tpu_torch.testing import gentxn
+
+    class CountingListAppend(elle.ListAppendChecker):
+        """Counts the check_batch calls and the ones that returned."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.calls = self.returned = 0
+
+        def check_batch(self, test, histories, opts):
+            self.calls += 1
+            out = super().check_batch(test, histories, opts)
+            self.returned += 1
+            return out
+
+    seconds: dict = {}
+    t_phase = time.perf_counter()
+    # the first product on the card creates the cuBLAS handle: no timing
+    # below carries it
+    z = np.zeros((4, 4), bool)
+    cl.classify_graphs([(z, z, z, z)], device=dev)
+
+    # (a) config 3, the columns engine against the loops
+    hist = gentxn.append_history(ELLE_TXNS, n_keys=ELLE_KEYS,
+                                 n_procs=ELLE_PROCS, seed=ELLE_SEED)
+    chk = elle.list_append(device=dev)
+    t0 = time.perf_counter()
+    res = chk.check({}, hist, {})
+    t_check = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = tg.list_append_graph(hist, (), engine="columns")
+    t_infer = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_g = elle.check_graph(g, chk.anomalies, device=dev)
+    t_classify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_loops = tg.list_append_graph(hist, (), engine="loops")
+    t_loops = time.perf_counter() - t0
+    diff = _graph_diff(g, g_loops)
+    res_loops = elle.list_append(engine="loops", device=dev).check({}, hist, {})
+    seconds["a"] = time.perf_counter() - t_phase
+    edges = {et: len(g.edge_arrays()[et]) for et in ("ww", "wr", "rw")}
+    print(f"elle[a]: config 3 ({ELLE_TXNS} txns, {ELLE_KEYS} keys, "
+          f"{ELLE_PROCS} processes, seed {ELLE_SEED}): valid? "
+          f"{res['valid?']}, {g.n} nodes, edges {json.dumps(edges)}; check "
+          f"{t_check:.3f} s = inference {t_infer:.3f} s (columns; loops "
+          f"{t_loops:.3f} s) + classification {t_classify:.3f} s (host SCC: "
+          f"{g.n} nodes > SCC_THRESHOLD {elle.SCC_THRESHOLD}, so under "
+          f"backend=\"device\" too: "
+          f"{not elle._device_classify(g.n, 'device')}); columns vs loops "
+          f"graph differences {diff}, results equal "
+          f"{_result_core(res_loops) == _result_core(res)}; {card}", flush=True)
+    if (res["valid?"] is not True or diff
+            or _result_core(res_g) != _result_core(res)
+            or _result_core(res_loops) != _result_core(res)):
+        raise AssertionError(f"elle[a]: config 3 valid? {res['valid?']}, "
+                             f"engines differ at {diff}")
+    del g_loops
+
+    # (b) config 3b
+    t0 = time.perf_counter()
+    rb = chk.check({}, gentxn.corrupt_wr(hist, seed=ELLE_CORRUPT_SEED), {})
+    seconds["b"] = time.perf_counter() - t0
+    print(f"elle[b]: config 3b (corrupt_wr seed {ELLE_CORRUPT_SEED}): valid? "
+          f"{rb['valid?']}, anomaly-types {rb.get('anomaly-types')}, "
+          f"{seconds['b']:.3f} s; {card}", flush=True)
+    if rb["valid?"] is not False or rb.get("anomaly-types") != ["incompatible-order"]:
+        raise AssertionError(f"elle[b]: {rb['valid?']} {rb.get('anomaly-types')}")
+    del hist, g
+
+    # (c) config 3c: one check_batch per backend, then the cycle phase's
+    # split on the same graphs
+    t_c = time.perf_counter()
+    hists = [gentxn.append_history(PER_KEY_TXNS, n_keys=PER_KEY_KEYS,
+                                   n_procs=PER_KEY_PROCS, seed=PER_KEY_SEED + i)
+             for i in range(PER_KEY_GRAPHS)]
+    outs, batch_s, launches = {}, {}, {}
+    prev = elle.CYCLE_BACKEND
+    try:
+        for backend in ("device", "host"):
+            elle.CYCLE_BACKEND = backend
+            c = CountingListAppend(device=dev)
+            cl.reset_counts()
+            t0 = time.perf_counter()
+            outs[backend] = c.check_batch({}, hists, {})
+            batch_s[backend] = time.perf_counter() - t0
+            launches[backend] = dict(cl.BUCKET_LAUNCHES)
+            if (c.calls, c.returned) != (1, 1):
+                raise AssertionError(f"elle[c]: check_batch called {c.calls} "
+                                     f"times, returned {c.returned} times")
+    finally:
+        elle.CYCLE_BACKEND = prev
+    equal = [_result_core(r) for r in outs["device"]] == [
+        _result_core(r) for r in outs["host"]]
+    valid = sum(1 for r in outs["host"] if r["valid?"] is True)
+    t0 = time.perf_counter()
+    graphs = tg.list_append_graphs(hists)
+    t_infer = time.perf_counter() - t0
+    mats = [(gg.ww, gg.wr, gg.rw, gg.extra) for gg in graphs]
+    split: list = []
+    t0 = time.perf_counter()
+    dev_out = cl.classify_graphs(mats, device=dev, timings=split)
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_out = [scc.classify_graph_scc(*m, edges=gg.edge_arrays())
+                for m, gg in zip(mats, graphs)]
+    t_host = time.perf_counter() - t0
+    size = cl._pad_to(max(m[0].shape[0] for m in mats))
+    steps = cl._n_steps(size)
+    x = torch.from_numpy(cl._pad_stack(mats, range(len(mats)), size)).to(dev)
+    closure_ms = _time_ms(
+        lambda: cl.classify_cycles_batch(x[0], x[1], x[2], x[3], steps, device=dev),
+        iters=5)
+    flops = 3 * steps * len(mats) * 2 * size ** 3
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    del x
+    seconds["c"] = time.perf_counter() - t_c
+    print(f"elle[c]: config 3c ({PER_KEY_GRAPHS} histories of {PER_KEY_TXNS} "
+          f"txns, {PER_KEY_KEYS} keys, {PER_KEY_PROCS} processes, seeds "
+          f"{PER_KEY_SEED}+i), one ListAppendChecker.check_batch each: device "
+          f"{batch_s['device']:.3f} s (closure launches per bucket "
+          f"{json.dumps(launches['device'])}), host {batch_s['host']:.3f} s "
+          f"(launches {json.dumps(launches['host'])}); {valid} valid; results "
+          f"equal {equal}; cycle phase on the same graphs (inference "
+          f"{t_infer:.3f} s): device {t_dev:.4f} s "
+          f"{json.dumps([{k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()} for r in split])}, "
+          f"host SCC {t_host:.4f} s, flags and hints equal "
+          f"{dev_out == host_out}; the bucket's classification "
+          f"{closure_ms:.4f} ms on the card (CUDA events; {flops / 1e9:.1f} "
+          f"GFLOP of bf16 products, bound {bound_ms:.4f} ms); {card}", flush=True)
+    if not equal or dev_out != host_out or any(v != 1 for v in launches["device"].values()) \
+            or not launches["device"] or launches["host"]:
+        raise AssertionError(f"elle[c]: results equal {equal}, flags equal "
+                             f"{dev_out == host_out}, launches {launches}")
+
+    # (d) planted cycles: the card, the CPU path and host SCC
+    t_d = time.perf_counter()
+    requested = ["G2", "G1", "internal"]
+    rows = []
+    for n in PLANTED_SIZES:
+        planted, control = _planted_graphs(tg, hmod, n, seed=n)
+        for name, gg, want in (("planted", planted, True), ("control", control, False)):
+            m = (gg.ww, gg.wr, gg.rw, gg.extra)
+            on_card = cl.classify_graph(*m, device=dev)
+            on_cpu = cl.classify_graph(*m, device="cpu")
+            on_host = scc.classify_graph_scc(*m)
+            r_dev = elle.check_graph(gg, requested, backend="device", device=dev)
+            r_cpu = elle.check_graph(gg, requested, backend="device", device="cpu")
+            r_host = elle.check_graph(gg, requested, backend="host")
+            ok = (on_card == on_cpu == on_host and r_dev == r_cpu == r_host
+                  and all(on_card[0][k] is want for k in on_card[0])
+                  and (r_dev["valid?"] is not want))
+            rows.append([n, name, on_card[0] == {k: want for k in on_card[0]},
+                         on_card[1], r_dev.get("anomaly-types"), ok])
+            if not ok:
+                raise AssertionError(f"elle[d]: {n} {name}: card {on_card}, cpu "
+                                     f"{on_cpu}, host {on_host}")
+        full = planted.ww | planted.wr | planted.rw | planted.extra
+        size, steps = cl._pad_to(n), cl._n_steps(n)
+        c_dev = cl.transitive_closure(cl.pad_adj(full, size), steps, device=dev)
+        c_dev = c_dev.cpu().numpy()[:n, :n] > 0
+        oracle = cl.transitive_closure_np(full)
+        sharded = cl.transitive_closure_sharded(full, make_mesh(MESH_SHARDS, device=dev))
+        if not (np.array_equal(c_dev, oracle) and np.array_equal(sharded, c_dev)):
+            raise AssertionError(f"elle[d]: closures differ at {n} nodes")
+        rows.append([n, "closure", "card = numpy oracle = sharded on "
+                     f"make_mesh({MESH_SHARDS})", int(oracle.sum())])
+    rt_hist = gentxn.append_history(200, n_keys=5, n_procs=8, seed=7)
+    r_rt = elle.cycle_checker(elle.realtime_analyzer, backend="device",
+                              device=dev).check({}, rt_hist, {})
+    r_claim = elle.cycle_checker(_claimed_order_analyzer(elle), backend="device",
+                                 device=dev).check({}, rt_hist, {})
+    r_claim_host = elle.cycle_checker(_claimed_order_analyzer(elle),
+                                      backend="host").check({}, rt_hist, {})
+    seconds["d"] = time.perf_counter() - t_d
+    print(f"elle[d]: planted cycles [nodes, graph, flags, hints, anomaly-types, "
+          f"card = cpu = host] {json.dumps(rows)}; cycle_checker("
+          f"realtime_analyzer, backend=\"device\") valid? {r_rt['valid?']}; "
+          f"with a claimed order against realtime valid? {r_claim['valid?']} "
+          f"(cycle of {len(r_claim.get('anomalies', {}).get('cycle', [{}])[0].get('cycle', []))} "
+          f"ops; host backend equal {_result_core(r_claim) == _result_core(r_claim_host)}), "
+          f"{seconds['d']:.3f} s; {card}", flush=True)
+    if (r_rt["valid?"] is not True or r_claim["valid?"] is not False
+            or _result_core(r_claim) != _result_core(r_claim_host)):
+        raise AssertionError(f"elle[d]: realtime {r_rt['valid?']}, claimed "
+                             f"{r_claim['valid?']}")
+
+    # (e) crossover: the cycle phase on both backends at the JAX
+    # package's shapes, warm (one untimed classification of the shape
+    # first); nothing is asserted on speed
+    t_e = time.perf_counter()
+    table = []
+    for n_graphs, txns in CROSSOVER:
+        if (n_graphs, txns) == (PER_KEY_GRAPHS, PER_KEY_TXNS):
+            gs = graphs
+        else:
+            gs = tg.list_append_graphs([
+                gentxn.append_history(txns, n_keys=PER_KEY_KEYS,
+                                      n_procs=PER_KEY_PROCS,
+                                      seed=CROSSOVER_SEED + i)
+                for i in range(n_graphs)])
+        ms = [(gg.ww, gg.wr, gg.rw, gg.extra) for gg in gs]
+        cl.classify_graphs(ms, device=dev)
+        split = []
+        t0 = time.perf_counter()
+        d_out = cl.classify_graphs(ms, device=dev, timings=split)
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h_out = [scc.classify_graph_scc(*m, edges=gg.edge_arrays())
+                 for m, gg in zip(ms, gs)]
+        t_host = time.perf_counter() - t0
+        if d_out != h_out:
+            raise AssertionError(f"elle[e]: {n_graphs}x{txns}: device and host "
+                                 "flags or hints differ")
+        stage = {k: sum(r[k] for r in split) for k in ("pad", "h2d", "closure", "d2h")}
+        row = {"graphs": n_graphs, "txns": txns,
+               "sizes": sorted({r["size"] for r in split}),
+               "products": sum(r["products"] for r in split),
+               "gflop": sum(3 * r["steps"] * r["graphs"] * 2 * r["size"] ** 3
+                            for r in split) / 1e9,
+               "device_s": t_dev, **{f"{k}_s": v for k, v in stage.items()},
+               "host_s": t_host, "host_over_device": t_host / t_dev,
+               "flagged": sum(1 for f, _ in h_out if any(f.values()))}
+        table.append(row)
+        print(f"elle[e]: crossover {n_graphs} x {txns} txns: device "
+              f"{t_dev:.4f} s (pad {stage['pad']:.4f}, h2d {stage['h2d']:.4f}, "
+              f"closure {stage['closure']:.4f}, d2h {stage['d2h']:.4f}; "
+              f"{row['gflop']:.1f} GFLOP in {row['products']} batched "
+              f"products), host SCC {t_host:.4f} s, host/device "
+              f"{row['host_over_device']:.2f}, {row['flagged']} graphs "
+              f"flagged; {card}", flush=True)
+    seconds["e"] = time.perf_counter() - t_e
+    total = time.perf_counter() - t_phase
+    print(f"elle: phase {total:.3f} s, seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}",
+          flush=True)
+    return {"seconds": seconds, "crossover": table, "phase_s": total}
+
+
 def run_ladder(batch, wk, m, genhist):
     """Phase 5: the bench ladder on the card; returns (model, results,
     histories, stats, seconds, launch counts, the ``_Capture`` of its
@@ -1780,6 +2169,7 @@ def main(argv=None) -> int:
         batch, wk, wgl, sharded, mesh_mod, genhist, model, hists, results, cpu)
     checker_counts = run_checkers(batch, wk, mesh_mod, genhist, model, hists,
                                   results, cpu)
+    elle_out = run_elle(dev, card)
     if args.profile:
         profile_ladder(batch, model, hists)
     batch.shutdown_confirm_pool()
@@ -1809,6 +2199,7 @@ def main(argv=None) -> int:
             if k in bench[name]}}
         for name in ("keep_mask", "fused_frontier_update", "mesh_exchange")
     ]
+    print("elle_json: " + json.dumps(elle_out))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

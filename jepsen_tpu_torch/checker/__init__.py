@@ -9,9 +9,9 @@ checkers in parallel and merges validity with false > unknown > true
 priority (checker.clj:29-50).
 
 The device checkers (``checker.linearizable``, ``independent.checker``)
-implement the same protocol.  This package's ``__init__`` imports no
-torch: the spawned confirmation workers import ``checker.wgl_cpu``
-through it.
+and the Elle checkers (``checker.elle``) implement the same protocol.
+This package's ``__init__`` imports no torch: the spawned confirmation
+workers import ``checker.wgl_cpu`` through it.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Operation histories: the subset of the reference's history module that
-packing and the exact sweep use (op records, predicates, pairing, value
-encoding).
+packing, the exact sweep and the Elle checkers use (op records,
+predicates, pairing, value encoding, and ``ColumnHistory``, a stored
+history as lazy ops over its columns).
 
 A history is an ordered list of op dicts with keys ``type process f
 value time`` (plus ``index``).  Op types: ``invoke``; ``ok`` (definitely
@@ -12,7 +13,8 @@ nemesis) is not a client.
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from collections.abc import Mapping, Sequence
+from typing import Any
 
 import numpy as np
 
@@ -23,6 +25,10 @@ INFO = "info"
 
 #: The nemesis's process, which is not a client.
 NEMESIS = "nemesis"
+
+#: Packed codes for op types, and the nemesis's packed process id.
+TYPE_CODES = {INVOKE: 0, OK: 1, FAIL: 2, INFO: 3}
+NEMESIS_PID = np.int32(-1)
 
 #: Packed int32 for "no value" (nil), far outside any realistic register
 #: value so the model steps can branch on it.
@@ -64,7 +70,11 @@ def is_client_op(o) -> bool:
 
 def index(history: Sequence[dict]) -> list[dict]:
     """Add a monotone ``index`` key to each op, returning a new list
-    (ops already carrying their position keep their identity)."""
+    (ops already carrying their position keep their identity).  A
+    positional ``ColumnHistory`` is already indexed and passes through
+    untouched (no op dict is built)."""
+    if isinstance(history, ColumnHistory) and history.positional():
+        return history
     out = []
     for i, o in enumerate(history):
         if o.get("index") != i:
@@ -105,3 +115,125 @@ def encode_register_value(f, value) -> tuple[int, int]:
     if isinstance(value, (int, np.integer)):
         return int(value), int(NIL)
     raise TypeError(f"register value encoder can't pack {value!r}")
+
+
+def decode_register_value(f, v1: int, v2: int):
+    """Inverse of ``encode_register_value``."""
+    if v1 == NIL and v2 == NIL:
+        return None
+    if v2 == NIL:
+        return int(v1)
+    return [None if v1 == NIL else int(v1), None if v2 == NIL else int(v2)]
+
+
+class ColumnHistory(Sequence):
+    """A stored history as lazy ops over its columns.
+
+    ``cols`` holds int64 columns (``index``, ``type``, ``process``,
+    ``f``, ``value1``, ``value2``, ``time``); ``fs`` names the f codes
+    and ``extras`` maps an op's position to the keys its columns cannot
+    hold (a non-register value, a non-int process).  Checkers that
+    iterate ops get dicts built one at a time on access; the Elle
+    column engine reads ``cols`` and ``extras`` directly.  Positions
+    double as indices, so ``index()`` passes a positional one through.
+    """
+
+    _TYPE_NAMES = (INVOKE, OK, FAIL, INFO)
+
+    def __init__(self, cols: Mapping, fs: Sequence[str], extras: Mapping):
+        self.cols = cols
+        self.fs = list(fs)
+        self.extras = dict(extras)
+        self._py: dict | None = None  # plain-int column cache, built lazily
+        self._ops: list | None = None  # memoized op dicts (one build each)
+        self._complete = False  # _ops fully materialized?
+
+    def __len__(self) -> int:
+        return len(self.cols["index"])
+
+    def _pycols(self) -> dict:
+        # one tolist() per column on first access: per-op numpy scalar
+        # conversions would otherwise dominate
+        if self._py is None:
+            self._py = {k: v.tolist() for k, v in self.cols.items()}
+        return self._py
+
+    def _op(self, i: int) -> dict:
+        c = self._pycols()
+        extra = self.extras.get(i, {})
+        if "value" in extra:
+            value = extra["value"]
+        else:
+            value = decode_register_value(None, c["value1"][i], c["value2"][i])
+            if extra.get("value-tuple?") and isinstance(value, list):
+                value = tuple(value)
+        p = c["process"][i]
+        op = {
+            "index": c["index"][i],
+            "type": extra.get("type", self._TYPE_NAMES[c["type"][i]]),
+            "process": extra.get("process", NEMESIS if p == -1 else p),
+            "f": self.fs[c["f"][i]],
+            "value": value,
+            "time": c["time"][i],
+        }
+        for k, v in extra.items():
+            if k not in ("value", "value-tuple?", "type", "process"):
+                op[k] = v
+        return op
+
+    def __getitem__(self, i):
+        if self._ops is None:
+            self._ops = [None] * len(self)
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        n = len(self)
+        if i < 0:
+            i += n
+        if not 0 <= i < n:
+            raise IndexError(i)
+        op = self._ops[i]
+        if op is None:
+            op = self._ops[i] = self._op(i)
+        return op
+
+    def __iter__(self):
+        # a full scan materializes in one batch: per-access laziness
+        # costs more than the loop
+        yield from self.materialized()
+
+    def materialized(self) -> list:
+        """All ops as dicts, built once and memoized (ops already built
+        by ``__getitem__`` keep their identity)."""
+        if not self._complete:
+            prior = self._ops
+            self._ops = [
+                (prior[i] if prior is not None and prior[i] is not None else self._op(i))
+                for i in range(len(self))
+            ]
+            self._complete = True
+        return self._ops
+
+    def positional(self) -> bool:
+        """True when stored indices equal positions (an indexed history)."""
+        idx = self.cols["index"]
+        return bool((idx == np.arange(len(idx))).all())
+
+    def __eq__(self, other):
+        if other is self:
+            return True
+        try:
+            n = len(other)
+        except TypeError:
+            return NotImplemented
+        return n == len(self) and all(a == b for a, b in zip(self, other))
+
+    def __repr__(self) -> str:
+        return f"ColumnHistory({len(self)} ops)"
+
+
+def materialize(history):
+    """A plain-list view of a history: a ``ColumnHistory`` materializes
+    once (memoized); anything else passes through."""
+    if isinstance(history, ColumnHistory):
+        return history.materialized()
+    return history

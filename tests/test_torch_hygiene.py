@@ -12,11 +12,13 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from jepsen_tpu_torch import _platform
 from jepsen_tpu_torch import models as tm
+from jepsen_tpu_torch.ops import closure as tcl
 from jepsen_tpu_torch.ops import wide_kernel as twk
 from jepsen_tpu_torch.parallel import batch as tbatch
 
@@ -53,7 +55,10 @@ def test_importing_every_port_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "jepsen_tpu_torch.parallel.batch" in loaded
+    for mod in ("jepsen_tpu_torch.parallel.batch", "jepsen_tpu_torch.ops.closure",
+                "jepsen_tpu_torch.checker.elle", "jepsen_tpu_torch.checker.txn_columns",
+                "jepsen_tpu_torch.testing.gentxn"):
+        assert mod in loaded
     bad = [k for k in loaded if _forbidden(k)]
     assert bad == []
 
@@ -98,9 +103,12 @@ def test_resolve_device(monkeypatch):
         _platform.resolve_device("cuda")
 
 
-def test_wrappers_never_fall_back_off_the_cpu():
+def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     """A tensor that is not on the CPU goes to the kernel path, which
-    refuses what it cannot launch: the plain version is never taken."""
+    refuses what it cannot launch: the plain version is never taken.
+    The closure's entry points compute on the device they resolve (the
+    card unless "cpu" is asked for), or raise: never on the CPU in its
+    place."""
     n = 512
     st = torch.zeros(1, n, dtype=torch.int32, device="meta")
     fo = torch.zeros(1, n, 1, dtype=torch.int32, device="meta")
@@ -112,6 +120,46 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         twk.fused_frontier_update(st, fo, fc, al, None, 64, max_count=4)
     assert (twk.KEEP_LAUNCHES, twk.FUSED_LAUNCHES) == before
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcl.reset_counts()
+    for call in _closure_calls():
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call(device)
+        with pytest.raises(ValueError, match="unsupported device"):
+            call("meta")
+    assert tcl.BUCKET_LAUNCHES == {}
+
+
+def _closure_calls():
+    """Each entry point of ops.closure, as a function of its device."""
+    from jepsen_tpu_torch.parallel.mesh import make_mesh
+
+    adj = np.eye(4, k=1, dtype=bool)
+    g = (adj, adj, adj, adj)
+    m = tcl.pad_adj(adj, 128)
+    return [
+        lambda d: tcl.transitive_closure(m, 2, device=d),
+        lambda d: tcl.classify_cycles(m, m, m, m, 2, device=d),
+        lambda d: tcl.classify_cycles_hints(m, m, m, m, 2, device=d),
+        lambda d: tcl.classify_cycles_batch(m[None], m[None], m[None], m[None], 2,
+                                            device=d),
+        lambda d: tcl.classify_graph(*g, device=d),
+        lambda d: tcl.classify_graphs([g], device=d),
+        lambda d: tcl.transitive_closure_sharded(adj, make_mesh(4, device=d)),
+    ]
+
+
+def test_closure_entry_points_run_where_asked():
+    """With ``device="cpu"`` every closure entry point runs on the CPU:
+    the oracle's closure of a path graph, and no cycle flagged on it."""
+    want = tcl.transitive_closure_np(np.eye(4, k=1, dtype=bool))
+    outs = [call("cpu") for call in _closure_calls()]
+    np.testing.assert_array_equal(outs[0].numpy()[:4, :4] > 0, want)
+    np.testing.assert_array_equal(outs[-1], want)
+    assert outs[4] == (tcl._EMPTY_FLAGS, tcl._EMPTY_HINTS)
+    assert outs[5] == [outs[4]]
+    assert not bool(outs[1].g0) and not bool(outs[2].g2)
 
 
 def test_batch_analysis_refuses_unported_options():
