@@ -173,10 +173,49 @@ checkout (one nvcc per source, all started together), and then:
      flags and hints equal, seconds recorded and nothing asserted on
      speed.  An ``elle_json:`` line carries the seconds and the
      crossover table.
+ 11. the services, each sub-phase on the bench workload of phase 5
+     unless named otherwise, with the launch counts set to 0 before each
+     and read after it, on a line with its seconds and the card's name
+     and power limit: (a) a real kill: a child process (``--ladder-child
+     DIR``) runs the ladder with a checkpoint directory and is SIGKILLed
+     (its process group) once the checkpoint reaches stage 2; the ladder
+     resumed here gives phase 5's verdicts, every result recording the
+     restore, and the resume's seconds are printed beside phase 5's
+     ladder seconds; (b) a ``faults.Deadline`` of a third of phase 5's
+     ladder seconds: every history still undecided is unknown with cause
+     ``deadline-exceeded`` naming the checkpoint, the rest phase 5's,
+     and a resume gives phase 5's verdicts; (c) a real out-of-memory:
+     the lanes phase 5 took to the 2048 rung are launched alone at their
+     padded width and at half of it, and ``torch.cuda.set_per_process_
+     memory_fraction`` caps the process halfway between the two peaks of
+     reserved memory (printed); a ladder stopped at the 2048 rung's
+     boundary (a deadline that expires at that rung's poll) resumes
+     under the cap, so that the rung's launch runs out of memory and
+     must halve (the halvings printed; at least one at 2048), with phase
+     5's verdicts; the fraction is restored, then a
+     ``seeded_injector`` schedule of transient faults and injected
+     out-of-memory errors, counted by kind as they are raised (at least
+     one): each verdict phase 5's or an unknown naming the fault; (d)
+     ``confirm_refutations="device"`` over the histories phase 5
+     refuted: each refuted again and confirmed, by exactly one exact
+     launch per capacity and lane budget, final on the card (its
+     ``confirm.device`` event) or, where its exact lane was lossy or
+     survived, by the bounded sweep after that launch (the counts of
+     each printed per capacity), the exact runner's seconds beside
+     phase 5's confirm drain; (e) ``sharded_analysis`` on ``make_mesh(4)`` at
+     4096 rows over bench histories 3 and 7 (corrupted) and a 250-op,
+     8-process history (5 % :info, seed 500): the verdicts and failing
+     ops of ``wgl.analysis(fast=True)`` at the same capacity, and the
+     exchange launched, the counts read around each ``sharded_analysis``
+     call alone (the reference's own launches stay out); (f) ``check_safe``
+     of ``independent.checker(linearizable(competition))`` with a store
+     directory on bench keys 0-7: a bundle per key, ``verify_bundle``
+     passing on each, its digest the in-memory bundle's.
 
 It prints a ``{"kernels": [...]}`` JSON line (launches from the mesh
-ladder of phase 7, from phase 8 as ``single_history_launches`` and from
-phase 9's sub-phases as ``checker_launches``;
+ladder of phase 7, from phase 8 as ``single_history_launches``, from
+phase 9's sub-phases as ``checker_launches`` and from phase 11's as
+``services_launches``;
 times at the G = 32 shapes, and as ``single_<rows>_ms`` at phase 8's
 captured shapes) and the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  It exits non-zero,
@@ -199,6 +238,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
+from pathlib import Path
 
 N_HISTORIES = 128
 OPS_PER_HISTORY = 100
@@ -1991,11 +2031,20 @@ def run_elle(dev, card: str) -> dict:
     return {"seconds": seconds, "crossover": table, "phase_s": total}
 
 
-def run_ladder(batch, wk, m, genhist):
-    """Phase 5: the bench ladder on the card; returns (model, results,
-    histories, stats, seconds, launch counts, the ``_Capture`` of its
-    fused update calls)."""
-    model = m.CASRegister(None)
+#: Phase 11: the services.  The checkpoint stage the killed child must
+#: reach, the share of phase 5's ladder seconds the deadline gets, the
+#: seeded fault schedule, the context-parallel histories' capacity
+#: ladder and the extra history's shape, and the evidence run's keys.
+KILL_AT_STAGE = 2
+DEADLINE_SHARE = 1 / 3
+FAULT_SEED = 11
+SHARDED_CAPS = (4096,)
+SHARDED_EXTRA = (250, 8, 0.05, 500)  # ops, processes, :info rate, seed
+EVIDENCE_KEYS = 8
+
+
+def _bench_histories(genhist) -> list:
+    """The bench workload of phase 5 (seeds 0-127, every 4th corrupted)."""
     hists = []
     for i in range(N_HISTORIES):
         hh = genhist.valid_register_history(
@@ -2004,6 +2053,440 @@ def run_ladder(batch, wk, m, genhist):
         if i % CORRUPT_EVERY == CORRUPT_EVERY - 1:
             hh = genhist.corrupt(hh, seed=i)
         hists.append(hh)
+    return hists
+
+
+LADDER_KW = dict(capacity=CAPS, exact_escalation=(), cpu_fallback=False,
+                 dedup_backend="fused", device="cuda")
+
+
+def ladder_child(checkpoint_dir: str) -> int:
+    """``--ladder-child DIR``: the bench ladder of phase 5 with a
+    checkpoint directory, in a process of its own that phase 11(a)
+    kills."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.parallel import batch
+    from jepsen_tpu_torch.testing import genhist
+
+    batch.batch_analysis(m.CASRegister(None), _bench_histories(genhist),
+                         checkpoint_dir=checkpoint_dir, **LADDER_KW)
+    return 0
+
+
+def _checkpoint_stage(d) -> tuple[int, bool] | None:
+    """The (stage, complete) of the ladder checkpoint in ``d``, read
+    without verification (a verifying read quarantines a pair caught
+    between its two writes), or None before the first save."""
+    from jepsen_tpu_torch.store import checkpoint as ckpt
+
+    try:
+        doc = json.loads(ckpt.json_path(d).read_text())["payload"]
+    except (OSError, ValueError, KeyError):
+        return None
+    return int(doc["stage"]), bool(doc["complete"])
+
+
+def _kill_mid_ladder(d) -> tuple[int, float]:
+    """Start the ladder child, SIGKILL its process group once its
+    checkpoint reaches ``KILL_AT_STAGE``; returns (stage, seconds from
+    the start to the kill)."""
+    import signal
+
+    log = open(Path(d).parent / "child.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ladder-child",
+         str(d)], stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    try:
+        while True:
+            st = _checkpoint_stage(d)
+            if st is not None and st[1]:
+                raise AssertionError("services[a]: the child finished before "
+                                     "it was killed")
+            if st is not None and st[0] >= KILL_AT_STAGE:
+                break
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"services[a]: the ladder child exited {proc.returncode}: "
+                    + (Path(d).parent / "child.log").read_text()[-2000:])
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("services[a]: no stage-"
+                                     f"{KILL_AT_STAGE} checkpoint in 300 s")
+            time.sleep(0.02)
+        seconds = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        log.close()
+    return _checkpoint_stage(d)[0], seconds
+
+
+def _verdicts(res) -> list:
+    return [r["valid?"] for r in res]
+
+
+def _oom_fraction(batch, wgl, model, hists, ladder_results, dev) -> dict:
+    """The memory fraction at which the 2048 rung's launch runs out of
+    memory while its halves fit: the lanes phase 5 decided (or left) at
+    that rung, launched alone at their padded width and at half of it,
+    each peak of reserved memory read after emptying the cache; the cap
+    lies halfway between the two peaks."""
+    import torch
+
+    top = CAPS[-1]
+    lanes = [i for i, r in enumerate(ladder_results)
+             if (r.get("kernel") or {}).get("capacity") == top]
+    packs = [wgl.pack(model, hists[i]) for i in lanes]
+    total = torch.cuda.get_device_properties(dev).total_memory
+
+    def peak(sub, halved) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        batch._launch("async", top, sub, None, "fused", dev, 8, halved=halved)
+        torch.cuda.synchronize()
+        out = torch.cuda.max_memory_reserved() - base
+        torch.cuda.empty_cache()
+        return out
+
+    full = peak(packs, False)
+    half = peak(packs[: (len(packs) + 1) // 2], True)
+    base = torch.cuda.memory_reserved()
+    if not (0 < half < full):
+        raise AssertionError(f"services[c]: the halved launch holds {half} "
+                             f"bytes against {full}: halving cannot help")
+    cap = base + (half + full) // 2
+    return {"lanes": len(lanes), "padded": batch.padded_batch(len(lanes)),
+            "full_bytes": full, "half_bytes": half, "base_bytes": base,
+            "device_buffer_bytes": wgl.device_buffer_bytes(dev),
+            "total_bytes": total, "fraction": cap / total}
+
+
+def run_services(dev, batch, wk, wgl, sharded, mesh_mod, genhist, model,
+                 hists, ladder_results, ladder_seconds, ladder_stats,
+                 card: str) -> dict:
+    """Phase 11: the services on the card (see the module docstring);
+    returns the kernels' launch counts of each sub-phase."""
+    import tempfile
+
+    import torch
+
+    from jepsen_tpu_torch import checker, faults, independent
+    from jepsen_tpu_torch import history as hmod
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.obs import provenance
+    from jepsen_tpu_torch.store import checkpoint as ckpt
+
+    want = _verdicts(ladder_results)
+    launches: dict = {}
+    seconds: dict = {}
+    t_phase = time.perf_counter()
+
+    def held(tag, got) -> None:
+        bad = [[i, g, w] for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if bad:
+            raise AssertionError(f"services[{tag}]: [history, got, phase 5] "
+                                 f"disagreeing {bad[:10]}")
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-services-") as tmp:
+        tmp = Path(tmp)
+        # (a) a real kill: the ladder in a child process, SIGKILLed once
+        # its checkpoint passed stage 1, then resumed here
+        t_sub = time.perf_counter()
+        d = tmp / "kill" / "ckpt"
+        d.parent.mkdir()
+        stage, t_kill = _kill_mid_ladder(d)
+        saved = ckpt.load(d)
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        res = batch.batch_analysis(model, hists, checkpoint_dir=d, resume=True,
+                                   **LADDER_KW)
+        t_resume = time.perf_counter() - t0
+        launches["a"] = _launch_counts(wk)
+        held("a", _verdicts(res))
+        restored = sum(1 for r in res if r["provenance"]["path"]
+                       and r["provenance"]["path"][0]["event"]
+                       == "checkpoint.restored")
+        if restored != len(res) or not ckpt.load(d)["complete"]:
+            raise AssertionError(f"services[a]: {restored} of {len(res)} "
+                                 "results restored, or no complete checkpoint")
+        print(f"services[a]: child killed at checkpoint stage {stage} "
+              f"({t_kill:.3f} s after its start; {len(saved['pending'])} "
+              f"pending, {len(saved['resumes'])} carried frontiers, "
+              f"{len(saved['confirms'])} confirmations in flight); resume "
+              f"{t_resume:.3f} s against phase 5's ladder "
+              f"{ladder_seconds:.3f} s; verdicts equal phase 5's; launches "
+              f"{launches['a']}; {card}", flush=True)
+        seconds["a"] = time.perf_counter() - t_sub
+
+        # (b) a deadline of a third of phase 5's ladder seconds, then a
+        # resume without one
+        d = tmp / "deadline"
+        budget = ladder_seconds * DEADLINE_SHARE
+        wk.reset_counts()
+        t_sub = t0 = time.perf_counter()
+        res = batch.batch_analysis(model, hists, checkpoint_dir=d,
+                                   deadline=faults.Deadline(budget),
+                                   **LADDER_KW)
+        t_trip = time.perf_counter() - t0
+        undecided = [i for i, r in enumerate(res) if r["valid?"] == "unknown"]
+        bad = [i for i in undecided
+               if "deadline-exceeded" not in res[i].get("cause", "")
+               or ckpt.CKPT_JSON not in res[i].get("cause", "")]
+        wrong = [i for i, r in enumerate(res)
+                 if r["valid?"] != "unknown" and r["valid?"] != want[i]]
+        if bad or wrong or not undecided:
+            raise AssertionError(f"services[b]: without the deadline cause "
+                                 f"{bad[:10]}, disagreeing {wrong[:10]}, "
+                                 f"{len(undecided)} undecided")
+        t0 = time.perf_counter()
+        res = batch.batch_analysis(model, hists, checkpoint_dir=d, resume=True,
+                                   **LADDER_KW)
+        t_resume = time.perf_counter() - t0
+        seconds["b"] = time.perf_counter() - t_sub
+        launches["b"] = _launch_counts(wk)
+        held("b", _verdicts(res))
+        print(f"services[b]: deadline {budget:.3f} s: returned in "
+              f"{t_trip:.3f} s with {len(undecided)} histories unknown "
+              f"(deadline-exceeded, checkpoint named), the rest phase 5's; "
+              f"resume {t_resume:.3f} s, verdicts equal phase 5's; "
+              f"launches {launches['b']}; {card}", flush=True)
+
+        # (c) a real out-of-memory at the 2048 rung's launch, then seeded
+        # transient faults.  The ladder first runs to the 2048 rung's
+        # boundary (a deadline that expires at that rung's poll, the
+        # ladder polling once per rung), so that the cap meets the 2048
+        # rung alone: halvings at an earlier rung would shrink the lane
+        # budget of every later one.
+        class TripAtTopRung(faults.Deadline):
+            __slots__ = ("polls",)
+
+            def expired(self):
+                self.polls += 1
+                return self.polls > len(CAPS)
+
+        d = tmp / "oom"
+        trip = TripAtTopRung(3600.0)
+        trip.polls = 0
+        t_sub = t0 = time.perf_counter()
+        batch.batch_analysis(model, hists, checkpoint_dir=d, deadline=trip,
+                             **LADDER_KW)
+        t_pre = time.perf_counter() - t0
+        pre = ckpt.load(d)
+        if pre["stage"] != len(CAPS) or pre["complete"]:
+            raise AssertionError(f"services[c]: checkpoint at stage "
+                                 f"{pre['stage']}, not the {CAPS[-1]} rung")
+        frac = _oom_fraction(batch, wgl, model, hists, ladder_results, dev)
+        print("services[c]: memory cap " + json.dumps(frac), flush=True)
+        st: dict = {}
+        wk.reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(frac["fraction"])
+        t0 = time.perf_counter()
+        try:
+            res = batch.batch_analysis(model, hists, checkpoint_dir=d,
+                                       resume=True, stats=st, **LADDER_KW)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        t_capped = time.perf_counter() - t0
+        held("c", _verdicts(res))
+        halved = {r["capacity"]: r["halvings"] for r in st["rungs"]}
+        if not halved.get(CAPS[-1]):
+            raise AssertionError(f"services[c]: the {CAPS[-1]} rung did not "
+                                 f"halve: {halved}")
+        # the schedule's faults, counted by kind as they are raised, so
+        # that a schedule that injected nothing fails the check
+        seeded = faults.seeded_injector(FAULT_SEED, what="ladder.")
+        fired: dict = {}
+
+        def counted(ctx, attempt):
+            try:
+                seeded(ctx, attempt)
+            except Exception as e:
+                kind = faults.error_kind(e) or "other"
+                fired[kind] = fired.get(kind, 0) + 1
+                raise
+
+        st_inj: dict = {}
+        t0 = time.perf_counter()
+        with faults.inject_scope(counted):
+            res = batch.batch_analysis(model, hists, stats=st_inj, **LADDER_KW)
+        t_inj = time.perf_counter() - t0
+        seconds["c"] = time.perf_counter() - t_sub
+        launches["c"] = _launch_counts(wk)
+        faulted = [i for i, r in enumerate(res) if r["valid?"] != want[i]]
+        bad = [i for i in faulted if res[i]["valid?"] != "unknown"
+               or "injected" not in res[i].get("cause", "")]
+        if bad:
+            raise AssertionError(f"services[c]: injected faults changed "
+                                 f"verdicts {bad[:10]}")
+        if not fired:
+            raise AssertionError(f"services[c]: seed {FAULT_SEED} injected "
+                                 "no fault into the ladder's launches")
+        print(f"services[c]: ladder to the {CAPS[-1]} rung {t_pre:.3f} s "
+              f"({len(pre['pending'])} lanes pending); its resume under the "
+              f"cap {t_capped:.3f} s, halvings per rung "
+              f"{json.dumps(halved)}, spill retries "
+              f"{st['oom_spill_retries']}, verdicts equal phase 5's; seeded "
+              f"faults (seed {FAULT_SEED}) {t_inj:.3f} s, injected by kind "
+              f"{json.dumps(fired)}, halvings {st_inj['oom_halvings']}, "
+              f"spill retries {st_inj['oom_spill_retries']}, {len(faulted)} "
+              f"unknown naming the fault, the rest phase 5's; launches "
+              f"{launches['c']}; {card}", flush=True)
+
+        # (d) device confirmation, over the histories phase 5 refuted:
+        # one exact launch per capacity (per lane budget) confirms them
+        refuted = [i for i, v in enumerate(want) if v is False]
+        st = {}
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        res = batch.batch_analysis(model, [hists[i] for i in refuted],
+                                   confirm_refutations="device", stats=st,
+                                   **LADDER_KW)
+        seconds["d"] = time.perf_counter() - t0
+        launches["d"] = _launch_counts(wk)
+        bad = [[i, r["valid?"]] for i, r in zip(refuted, res)
+               if r["valid?"] is not False]
+        if bad:
+            raise AssertionError(f"services[d]: [history, got] where phase 5 "
+                                 f"refuted {bad[:10]}")
+        dc = st.get("device_confirm") or {}
+        by_cap: dict = {}
+        for r in res:
+            cap = int(r["kernel"]["capacity"])
+            by_cap[cap] = by_cap.get(cap, 0) + 1
+        expect = sum(-(-n // max(1, batch._EXACT_LANE_BUDGET // cap))
+                     for cap, n in by_cap.items())
+        # each refutation is final on the card (a lossless exact death)
+        # or, where its exact lane was lossy or survived, decided by the
+        # bounded sweep after that launch ran; a failed launch would
+        # leave it unknown
+        final: dict = {}
+        swept: dict = {}
+        for r in res:
+            ev = r["provenance"]["path"]
+            cap = int(r["kernel"]["capacity"])
+            if {"event": "confirm.device", "outcome": "refuted-final"} in ev:
+                final[cap] = final.get(cap, 0) + 1
+            elif any(e["event"] == "confirm.resolved"
+                     and e.get("mode") == "device-sweep" for e in ev):
+                swept[cap] = swept.get(cap, 0) + 1
+        if (dc.get("refutations") != len(refuted)
+                or dc.get("launches") != expect or not final
+                or sum(final.values()) + sum(swept.values()) != len(refuted)
+                or not all(r.get("confirmed?") for r in res)):
+            raise AssertionError(
+                f"services[d]: {dc.get('refutations')} refutations, "
+                f"{dc.get('launches')} exact launches against {expect} for "
+                f"capacities {by_cap}; by capacity {final} final on the card, "
+                f"{swept} swept, of {len(refuted)}")
+        print(f"services[d]: device-confirmed ladder over phase 5's "
+              f"{len(refuted)} refuted histories {seconds['d']:.3f} s; exact "
+              f"runner {dc['launches']} launches (refutations per capacity "
+              f"{json.dumps(by_cap)}), {dc['seconds']:.3f} s; final on the "
+              f"card per capacity {json.dumps(final)}, by the bounded sweep "
+              f"after a lossy or surviving exact lane {json.dumps(swept)}; "
+              f"against phase 5's confirm drain "
+              f"{ladder_stats['confirm_drain_s']:.3f} s; verdicts equal "
+              f"phase 5's; launches {launches['d']}; {card}", flush=True)
+
+        # (e) context-parallel: one history's frontier over 4 shards
+        mesh4 = mesh_mod.make_mesh(MESH_SHARDS)
+        ops, procs, info, seed = SHARDED_EXTRA
+        extra = genhist.valid_register_history(ops, procs, seed=seed,
+                                               info_rate=info,
+                                               n_values=N_VALUES)
+        cases = [(f"bench {k}", hists[k]) for k in DECIDED_BENCH]
+        cases.append((f"{ops}-op", extra))
+        t0 = time.perf_counter()
+        rows = []
+        launches["e"] = {}
+        for tag, hh in cases:
+            # the context-parallel path's own launches: the reference
+            # below runs the chunked engine, whose launches stay out
+            wk.reset_counts()
+            t1 = time.perf_counter()
+            got = sharded.sharded_analysis(model, hh, mesh4,
+                                           capacity=SHARDED_CAPS)
+            t2 = time.perf_counter()
+            for name, n in _launch_counts(wk).items():
+                launches["e"][name] = launches["e"].get(name, 0) + n
+            ref = wgl.analysis(model, hh, capacity=SHARDED_CAPS, fast=True)
+            rows.append([tag, got["valid?"], ref["valid?"],
+                         got.get("kernel", {}).get("frontier-peak"),
+                         round(t2 - t1, 3)])
+            if got["valid?"] != ref["valid?"] or _op_index(got) != _op_index(ref):
+                raise AssertionError(f"services[e]: {tag}: sharded "
+                                     f"{got['valid?']} against wgl.analysis "
+                                     f"{ref['valid?']}")
+        seconds["e"] = time.perf_counter() - t0
+        if launches["e"]["mesh_exchange"] <= 0:
+            raise AssertionError("services[e]: the exchange never launched")
+        print(f"services[e]: sharded_analysis on {MESH_SHARDS} shards at "
+              f"{SHARDED_CAPS} [history, sharded, wgl.analysis fast, peak, s] "
+              f"{json.dumps(rows)}; {seconds['e']:.3f} s with the references; "
+              f"launches {launches['e']}; {card}", flush=True)
+
+        # (f) evidence bundles from check_safe with a store
+        test = {"name": "services", "start-time-str": "f",
+                "store-dir": str(tmp / "store")}
+        keys = range(EVIDENCE_KEYS)
+        keyed = _keyed(independent, hists, keys)
+        chk = independent.checker(lin.linearizable({
+            "model": "cas-register", "algorithm": "competition",
+            "kernel-opts": {"capacity": CAPS}}))
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        res = checker.check_safe(chk, test, keyed)
+        seconds["f"] = time.perf_counter() - t0
+        launches["f"] = _launch_counts(wk)
+        errs = _errors(res)
+        if errs:
+            raise AssertionError(f"services[f]: errors at {errs[:5]}")
+        for k in keys:
+            r = res["results"][k]
+            if r["valid?"] != want[k] and want[k] != "unknown":
+                raise AssertionError(f"services[f]: key {k} {r['valid?']} "
+                                     f"against phase 5's {want[k]}")
+            ev = r.get("evidence")
+            if not ev:
+                raise AssertionError(f"services[f]: key {k} has no evidence")
+            rep = provenance.verify_bundle(ev["path"])
+            sub = hmod.index(independent.subhistory(k, keyed))
+            mem = provenance.build_bundle(
+                history=sub, result=r, source="check_batch",
+                model=lin.linearizable({"model": "cas-register"}).model,
+                checker="linearizable")
+            disk = provenance.read_bundle(ev["path"])
+            if not rep["ok"] or not (ev["digest"] == disk["digest"]
+                                     == mem["digest"]):
+                raise AssertionError(f"services[f]: key {k}: verify "
+                                     f"{rep}, digests {ev['digest']}, "
+                                     f"{disk['digest']}, {mem['digest']}")
+        print(f"services[f]: {EVIDENCE_KEYS} keys, {len(keys)} bundles "
+              f"written, verify_bundle passes on each, digests equal the "
+              f"in-memory bundles'; {seconds['f']:.3f} s; launches "
+              f"{launches['f']}; {card}", flush=True)
+
+    total = time.perf_counter() - t_phase
+    print(f"services: phase {total:.3f} s, seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
+          f"{card}", flush=True)
+    for name in ("keep_mask", "fused_frontier_update"):
+        if not any(c[name] for c in launches.values()):
+            raise AssertionError(f"services: {name} never launched")
+    return launches
+
+
+def run_ladder(batch, wk, m, genhist):
+    """Phase 5: the bench ladder on the card; returns (model, results,
+    histories, stats, seconds, launch counts, the ``_Capture`` of its
+    fused update calls)."""
+    model = m.CASRegister(None)
+    hists = _bench_histories(genhist)
     batch.warm_confirm_pool()
     stats: dict = {}
     capture = _Capture(wk)
@@ -2011,10 +2494,7 @@ def run_ladder(batch, wk, m, genhist):
     wk.reset_counts()
     t0 = time.perf_counter()
     try:
-        results = batch.batch_analysis(
-            model, hists, capacity=CAPS, exact_escalation=(), cpu_fallback=False,
-            dedup_backend="fused", device="cuda", stats=stats,
-        )
+        results = batch.batch_analysis(model, hists, stats=stats, **LADDER_KW)
     finally:
         wk.fused_frontier_update = capture.fn
     seconds = time.perf_counter() - t0
@@ -2083,7 +2563,10 @@ def main(argv=None) -> int:
                     help="only time the kernels' entry points of the port "
                     "package under ROOT (another commit's checkout) at the "
                     "bench shapes, print one entry_times JSON line, and exit")
+    ap.add_argument("--ladder-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ladder_child:
+        return ladder_child(args.ladder_child)
     if args.entry_times:
         sys.path.insert(0, os.path.abspath(args.entry_times))
     import torch
@@ -2170,6 +2653,9 @@ def main(argv=None) -> int:
     checker_counts = run_checkers(batch, wk, mesh_mod, genhist, model, hists,
                                   results, cpu)
     elle_out = run_elle(dev, card)
+    services_counts = run_services(
+        dev, batch, wk, wgl, sharded, mesh_mod, genhist, model, hists,
+        results, seconds, stats, card)
     if args.profile:
         profile_ladder(batch, model, hists)
     batch.shutdown_confirm_pool()
@@ -2192,6 +2678,8 @@ def main(argv=None) -> int:
          "library_ms": bench[name].get("library_ms"),
          "single_history_launches": single_counts[name],
          "checker_launches": {sub: c[name] for sub, c in checker_counts.items()},
+         "services_launches": {sub: c[name]
+                               for sub, c in services_counts.items()},
          **({f"single_{c}_ms": single_measured[c][name]["ms"]
              for c in SPILL_CAPS} if name in single_measured[SPILL_CAPS[0]]
             else {}),

@@ -26,13 +26,19 @@ Layer map:
   checker/txn_graph, checker/txn_columns  dependency-graph inference
                    (the loop reference and the column engine)
   txn              micro-op folds of transactions
-  obs/provenance   decision paths, evidence bundles and their digests
+  obs/provenance   decision paths, evidence bundles (in memory and on
+                   disk), their digests and their audit
+  faults           the launch retry policy, fault injection, deadlines
   store            a test's directory, atomic JSON and history writes
+  store/durable    checksummed, versioned records; quarantine
+  store/checkpoint the ladder's, chunk and stream checkpoints
   parallel/batch   the capacity ladder: greedy rung, async or sync
                    capacity rungs (carried-frontier resume on async),
-                   exact stages, worker-process confirmation of
-                   refutations, the mesh rescue
-  parallel/sharded the mesh-spanning wide stage, and its fallback
+                   exact stages, worker or device confirmation of
+                   refutations, the mesh rescue; checkpoints, deadlines,
+                   OOM halving and rung admission
+  parallel/sharded the context-parallel path and the mesh-spanning wide
+                   stage, with its fallback
   ops/wgl          packing, the batched greedy walk, the async and
                    barrier-scan engines, the chunked single-history
                    engine and its entry points

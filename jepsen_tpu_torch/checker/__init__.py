@@ -103,9 +103,9 @@ def check_safe(chk: Checker, test, history, opts=None, name: str | None = None) 
 
     The failure names which checker raised (``"checker"`` key; ``name``
     lets Compose pass the map key the caller knows the checker by), so
-    composed results stay attributable.  A refusal of what is not ported
-    (``NotImplementedError`` naming ROADMAP queue A6) lands here too.
-    Opts are normalized through ``resolve_opts``."""
+    composed results stay attributable.  Opts are normalized through
+    ``resolve_opts``, so a ``"check-deadline"`` budget reaches the
+    checker as a live ``"deadline"``."""
     name = name or checker_name(chk)
     opts = resolve_opts(opts)
     try:

@@ -22,9 +22,10 @@ incompatible-order.
 The checkers take the device of the ``"device"`` backend from their
 ``device=`` argument, else from ``opts["device"]``: the card unless it
 is ``"cpu"``.  Results carry a ``provenance`` block
-(``obs.provenance.attach``); no evidence bundle is written (ROADMAP
-queue A6, C5), and the serve lane's ``batch_key`` waits with the
-serving modules (A9).
+(``obs.provenance.attach``), and with a store configured each result's
+evidence bundle is written (``obs.provenance.emit``), as in the JAX
+package; the serve lane's ``batch_key`` waits with the serving modules
+(ROADMAP queue A9).
 """
 
 from __future__ import annotations
@@ -518,11 +519,14 @@ class _ElleChecker(Checker):
             "cycle_backend": getattr(self, "backend", None) or CYCLE_BACKEND,
         }
 
-    def _attach(self, res, workload: str) -> None:
+    def _emit_evidence(self, test, history, res, opts, *,
+                       workload: str, source: str = "check") -> None:
         _prov.attach(
             res, [{"event": "elle.check", "workload": workload}],
             engine=self._prov_engine(),
         )
+        _prov.emit(test, history, res, source=source,
+                   checker=f"elle-{workload}", opts=opts)
 
 
 class ListAppendChecker(_ElleChecker):
@@ -559,7 +563,7 @@ class ListAppendChecker(_ElleChecker):
         )
         res = check_graph(g, self.anomalies, device=self._device(opts))
         self.write_artifacts(test, res, opts)
-        self._attach(res, "list-append")
+        self._emit_evidence(test, history, res, opts, workload="list-append")
         return res
 
     def check_batch(self, test, histories, opts):
@@ -570,8 +574,9 @@ class ListAppendChecker(_ElleChecker):
             histories, self.additional_graphs, engine=self.engine
         )
         outs = check_graphs(graphs, self.anomalies, device=self._device(opts))
-        for res in outs:
-            self._attach(res, "list-append")
+        for hh, res in zip(histories, outs):
+            self._emit_evidence(test, hh, res, opts,
+                                workload="list-append", source="check_batch")
         return outs
 
 
@@ -607,7 +612,7 @@ class WRRegisterChecker(_ElleChecker):
         res = check_graph(self._graph(history), self.anomalies,
                           device=self._device(opts))
         self.write_artifacts(test, res, opts)
-        self._attach(res, "wr-register")
+        self._emit_evidence(test, history, res, opts, workload="wr-register")
         return res
 
     def check_batch(self, test, histories, opts):
@@ -618,8 +623,9 @@ class WRRegisterChecker(_ElleChecker):
             linearizable_keys=self.linearizable_keys, engine=self.engine,
         )
         outs = check_graphs(graphs, self.anomalies, device=self._device(opts))
-        for res in outs:
-            self._attach(res, "wr-register")
+        for hh, res in zip(histories, outs):
+            self._emit_evidence(test, hh, res, opts,
+                                workload="wr-register", source="check_batch")
         return outs
 
 
@@ -662,15 +668,16 @@ class CycleChecker(_ElleChecker):
     def check(self, test, history, opts):
         res = self._check_one(history, self._device(opts))
         self.write_artifacts(test, res, opts)
-        self._attach(res, "cycle")
+        self._emit_evidence(test, history, res, opts, workload="cycle")
         return res
 
     def check_batch(self, test, histories, opts):
         """One classification loop over many histories."""
         dev = self._device(opts)
         outs = [self._check_one(hh, dev) for hh in histories]
-        for res in outs:
-            self._attach(res, "cycle")
+        for hh, res in zip(histories, outs):
+            self._emit_evidence(test, hh, res, opts,
+                                workload="cycle", source="check_batch")
         return outs
 
     def _check_one(self, history, device=None):

@@ -28,12 +28,13 @@ The checker's opts take ``"device"``: the CUDA card unless it is
 reference does (checker.clj:213-216), and ``check`` renders
 ``linear.svg`` into the test's store directory.
 
-Not ported yet, and refused rather than ignored (ROADMAP queue A6): a
-deadline that reaches a device engine, and the ladder's checkpoints and
-resume in ``check_batch``; under ``checker.check_safe`` a refusal
-becomes an ``unknown`` result whose ``error`` names the queue.  Results
-carry a ``provenance`` block with the decision path and the engine's
-name, but no evidence bundle is written.
+The check's opts carry the services, as in the JAX package: the shared
+``"deadline"`` (``checker.resolve_opts`` makes it from the test map's
+``"check-deadline"``) reaches every device engine, and ``check_batch``
+passes ``"checkpoint-dir"`` and ``"resume?"`` to the ladder.  Results
+carry a ``provenance`` block, and with a store configured (``name``,
+``start-time-str`` in the test map) each writes an evidence bundle
+(``obs.provenance.emit``) and records it under ``"evidence"``.
 """
 
 from __future__ import annotations
@@ -81,15 +82,9 @@ class Linearizable(Checker):
         raise ValueError(f"unknown linearizability algorithm {self.algorithm!r}")
 
     def _chunked(self, wgl_dev, history, deadline, kernel_opts) -> dict:
-        """``wgl.analysis`` on the checker's device, its result named by
-        the engine that ran ("chunked-fast" or "chunked-exact").  A
-        deadline is forwarded only when set (the engine refuses it)."""
-        kw = dict(kernel_opts)
-        if deadline is not None:
-            kw["deadline"] = deadline
-        a = wgl_dev.analysis(self.model, history, device=self.device, **kw)
-        engine = "chunked-fast" if kernel_opts.get("fast") else "chunked-exact"
-        return _prov.attach(a, engine={"engine": engine})
+        """``wgl.analysis`` on the checker's device under the deadline."""
+        return wgl_dev.analysis(self.model, history, deadline=deadline,
+                                device=self.device, **kernel_opts)
 
     def _competition(self, history, wgl_dev, deadline=None):
         """Fast engines first, exact ones on demand (see module doc).
@@ -199,6 +194,8 @@ class Linearizable(Checker):
         )
         if out.get("valid?") is False:
             self._render_failure(test, history, out, opts)
+        _prov.emit(test, history, out, source="check", model=self.model,
+                   checker="linearizable", opts=opts)
         return out
 
     @staticmethod
@@ -225,38 +222,43 @@ class Linearizable(Checker):
     def check_batch(self, test, histories, opts):
         """Check many subhistories in one batched ladder
         (``parallel.batch_analysis``; used by independent.checker:
-        per-key shards become the batch's lanes).  CPU algorithms just
-        loop, headless (independent.checker writes per-key artifacts)."""
+        per-key shards become the batch's lanes), under the opts'
+        deadline, checkpoint directory and ``"resume?"``.  CPU algorithms
+        just loop, headless (independent.checker writes per-key
+        artifacts).  Each result's evidence bundle is emitted."""
         if self.algorithm in ("wgl", "sweep"):
-            return [self._truncate(self._analyze(hh)) for hh in histories]
-        from jepsen_tpu_torch.ops.wgl import SERVICES_QUEUE
+            outs = [self._truncate(self._analyze(hh)) for hh in histories]
+            for hh, out in zip(histories, outs):
+                _prov.emit(test, hh, out, source="check_batch",
+                           model=self.model, checker="linearizable",
+                           opts=opts)
+            return outs
         from jepsen_tpu_torch.parallel.batch import batch_analysis
 
-        opts = opts or {}
-        if opts.get("resume?"):
-            raise NotImplementedError(
-                f"resume? is not ported to the batch ladder ({SERVICES_QUEUE})")
         # kernel-opts is shaped for wgl.analysis; forward only the keys
         # batch_analysis shares (capacity ladder, rounds, mesh, exact
-        # stages, engine).  A deadline or checkpoint dir is forwarded
-        # only when set, and the ladder refuses it.
+        # stages, engine).
         kw = {
             k: v
             for k, v in self.kernel_opts.items()
             if k in ("capacity", "rounds", "mesh", "exact_escalation", "engine")
         }
-        if opts.get("deadline") is not None:
-            kw["deadline"] = opts["deadline"]
-        if opts.get("checkpoint-dir") is not None:
-            kw["checkpoint_dir"] = opts["checkpoint-dir"]
+        opts = opts or {}
         results = batch_analysis(
             self.model,
             histories,
             cpu_fallback=(self.algorithm == "competition"),
+            deadline=opts.get("deadline"),
+            checkpoint_dir=opts.get("checkpoint-dir"),
+            resume=bool(opts.get("resume?")),
             device=self.device,
             **kw,
         )
-        return [self._truncate(r) for r in results]
+        outs = [self._truncate(r) for r in results]
+        for hh, out in zip(histories, outs):
+            _prov.emit(test, hh, out, source="check_batch",
+                       model=self.model, checker="linearizable", opts=opts)
+        return outs
 
 
 def linearizable(opts: Mapping) -> Checker:

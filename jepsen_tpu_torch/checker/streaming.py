@@ -45,8 +45,14 @@ this engine records is ``stream.``-prefixed, and :func:`parity_digest`
 strips the engine trajectory, so a streamed and a post-hoc check of one
 history digest the same — in this package and in the JAX package.
 
-Stream checkpoints and resume are not ported (ROADMAP queue A6): a
-``checkpoint_dir`` is refused.
+Durability: with ``checkpoint_dir`` every accepted epoch persists the op
+stream, the cursor and the carried frontier through the
+``store.checkpoint``/``store.durable`` pair (``stream-checkpoint.json``
+and ``.npz``, the JAX package's files), so a killed stream resumes
+mid-history (:meth:`StreamingChecker.resume`, ``stream_check(resume=
+True)``) and gives the verdict of an uninterrupted run.  A chunk scan
+whose launch fails under ``faults.call_with_retry`` ends the stream
+``unknown`` with the error named.
 """
 
 from __future__ import annotations
@@ -68,11 +74,6 @@ from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops.hashing import resolve_dedup_backend
 
 logger = logging.getLogger(__name__)
-
-
-def _refuse_checkpoints(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the streaming checker ({wgl.SERVICES_QUEUE})")
 
 
 def parity_digest(bundle: Mapping) -> str:
@@ -159,8 +160,6 @@ class StreamingChecker:
         checker: str = "linearizable",
         device=None,
     ):
-        if checkpoint_dir is not None:
-            _refuse_checkpoints("checkpoint_dir")
         self.model = model
         self.caps = (
             [int(capacity)] if isinstance(capacity, int)
@@ -173,6 +172,7 @@ class StreamingChecker:
         self.spill = bool(spill)
         self.max_groups = int(max_groups)
         self.max_procs = int(max_procs)
+        self.checkpoint_dir = checkpoint_dir
         self.stream_id = stream_id or uuid.uuid4().hex[:16]
         self.checker_name = checker
         self.device = resolve_device(device)
@@ -211,7 +211,7 @@ class StreamingChecker:
 
     @property
     def ops_consumed(self) -> int:
-        """Ops accepted so far."""
+        """Ops accepted so far: a resuming feeder continues from here."""
         return len(self._history)
 
     @property
@@ -240,11 +240,6 @@ class StreamingChecker:
         wall-clock latency from the offending epoch's arrival."""
         return dict(self._detect) if self._detect else None
 
-    @classmethod
-    def resume(cls, checkpoint_dir, model: m.Model) -> "StreamingChecker":
-        """Stream checkpoints are not ported: refused."""
-        _refuse_checkpoints("resume")
-
     def feed(self, ops: Sequence[Mapping]) -> dict:
         """Append arriving ops (one epoch) and advance through every
         newly settled barrier.  Returns :meth:`status`.  An undecidable
@@ -259,6 +254,7 @@ class StreamingChecker:
         if ops:
             self._history.extend(ops)
             self._advance(final=False)
+            self._save_ck()
         return self.status()
 
     def finalize(self) -> dict:
@@ -274,6 +270,7 @@ class StreamingChecker:
                 # any surviving config is a constructive witness (sound
                 # even after loss, as in chunked_analysis)
                 self._terminal({"valid?": True}, barrier=None)
+            self._save_ck()
         return self._result
 
     def status(self) -> dict:
@@ -479,6 +476,12 @@ class StreamingChecker:
         self._lossy = r["lossy"]
         self._frontier = r["frontier"]
         self._gkeys = new_keys
+        if r["error"] is not None:
+            self._terminal({
+                "valid?": UNKNOWN,
+                "cause": f"device launch failed: {r['error']}",
+            }, barrier=self._advanced)
+            return
         if r["failed_barrier"] is not None:
             self._refute_or_unknown(packed, r["failed_barrier"])
             return
@@ -486,6 +489,101 @@ class StreamingChecker:
             # verified counts loss-free barriers, as in chunked_analysis
             self._verified = S
         self._advanced = S
+
+    # ------------------------------------------------------------------
+    # Checkpoint and resume
+    # ------------------------------------------------------------------
+
+    def _ck_config(self) -> dict:
+        return {
+            "model": getattr(self.model, "name", None),
+            "stream_id": self.stream_id,
+            "capacity": self.caps, "rounds": self.rounds,
+            "chunk_barriers": self.chunk_barriers, "fast": self.fast,
+            "dedup": self.dedup, "spill": self.spill,
+            "max_groups": self.max_groups, "max_procs": self.max_procs,
+            "checker": self.checker_name,
+        }
+
+    def _save_ck(self) -> str | None:
+        """Persist the stream cursor and the carried frontier (fok as the
+        JAX package's uint32); a failed save is logged, never fatal."""
+        if self.checkpoint_dir is None:
+            return None
+        from jepsen_tpu_torch.store import checkpoint as _ckpt
+
+        if self._frontier is None:
+            frontier = (np.zeros(0, np.int32), np.zeros((0, 1), np.uint32),
+                        np.zeros((0, 1), np.int16))
+        else:
+            st, fo, fc = self._frontier
+            frontier = (st, np.asarray(fo).view(np.uint32), fc)
+        try:
+            p = _ckpt.save_stream(
+                self.checkpoint_dir, config=self._ck_config(),
+                ops=self._history, advanced=self._advanced,
+                cap_idx=self._cap_idx, frontier=frontier,
+                group_keys=self._gkeys, lossy=self._lossy,
+                verified=self._verified, launches=self._launches,
+                epochs=self._epochs, result=self._result,
+            )
+            return str(p)
+        except Exception:  # noqa: BLE001 — a recovery aid, not a verdict input
+            logger.warning("couldn't write stream checkpoint to %s",
+                           self.checkpoint_dir, exc_info=True)
+            return None
+
+    @classmethod
+    def resume(cls, checkpoint_dir, model: m.Model,
+               device=None) -> "StreamingChecker":
+        """Rebuild a killed stream from its checkpoint pair.  The saved
+        config wins over the caller's arguments, but ``model`` must match
+        the saved model's name (``CheckpointError`` otherwise).  Re-feed
+        from :attr:`ops_consumed`.  ``device``: the card unless the
+        caller asks for "cpu"."""
+        from jepsen_tpu_torch.convert import fok_bits
+        from jepsen_tpu_torch.store import checkpoint as _ckpt
+
+        saved = _ckpt.load_stream(checkpoint_dir)
+        cfg = saved["config"]
+        want = cfg.get("model")
+        have = getattr(model, "name", None)
+        if want is not None and want != have:
+            raise _ckpt.CheckpointError(
+                f"stream checkpoint was written for model {want!r}, "
+                f"resume offered {have!r}",
+                {"artifact": _ckpt.KIND_STREAM, "reason": "model-mismatch"})
+        sc = cls(
+            model,
+            capacity=cfg.get("capacity") or (64, 256),
+            rounds=cfg.get("rounds") or 8,
+            chunk_barriers=cfg.get("chunk_barriers") or 512,
+            fast=bool(cfg.get("fast")),
+            dedup_backend=cfg.get("dedup"),
+            spill=bool(cfg.get("spill")),
+            max_groups=cfg.get("max_groups") or 64,
+            max_procs=cfg.get("max_procs") or 128,
+            checkpoint_dir=checkpoint_dir,
+            stream_id=cfg.get("stream_id"),
+            checker=cfg.get("checker") or "linearizable",
+            device=device,
+        )
+        sc._history = [dict(o) for o in saved["ops"]]
+        st, fo, fc = saved["frontier"]
+        if st.shape[0]:
+            sc._frontier = (np.asarray(st, np.int32), fok_bits(fo),
+                            np.asarray(fc, np.int16))
+        sc._gkeys = [tuple(k) for k in saved["group_keys"]]
+        sc._advanced = saved["advanced"]
+        sc._cap_idx = saved["cap_idx"]
+        sc._lossy = saved["lossy"]
+        sc._verified = saved["verified"]
+        sc._launches = saved["launches"]
+        sc._epochs = saved["epochs"]
+        sc._result = saved["result"]
+        sc._pv("stream.resumed", barrier=sc._advanced,
+               ops=len(sc._history))
+        return sc
 
 
 def stream_check(
@@ -498,16 +596,28 @@ def stream_check(
     **kw,
 ) -> tuple[dict, "StreamingChecker"]:
     """Replay a stored history through a :class:`StreamingChecker` in
-    ``feed_ops``-sized epochs and finalize.  Returns ``(result,
-    checker)``; ``kw`` goes to the checker (``device`` among them).
-    Resuming a stream from a checkpoint is not ported: a
-    ``checkpoint_dir`` is refused (ROADMAP queue A6), and ``resume``
-    without one streams fresh, as in the JAX package."""
-    if checkpoint_dir is not None:
-        _refuse_checkpoints("resume" if resume else "checkpoint_dir")
-    history = list(history)
-    sc = StreamingChecker(model, **kw)
-    at = 0
+    ``feed_ops``-sized epochs and finalize.  With ``resume`` and a stream
+    checkpoint in ``checkpoint_dir``, the stream is rebuilt first and
+    feeding continues from its consumed-op count (a killed replay gives
+    the uninterrupted verdict; an unreadable checkpoint streams fresh).
+    Returns ``(result, checker)``; ``kw`` goes to the checker
+    (``device`` among them)."""
+    history = h.materialize(history)
+    sc: StreamingChecker | None = None
+    if resume and checkpoint_dir is not None:
+        from jepsen_tpu_torch.store import checkpoint as _ckpt
+
+        if _ckpt.stream_exists(checkpoint_dir):
+            try:
+                sc = StreamingChecker.resume(checkpoint_dir, model,
+                                             device=kw.get("device"))
+            except _ckpt.CheckpointError as e:
+                logger.warning(
+                    "unreadable stream checkpoint in %s (%s); "
+                    "streaming fresh", checkpoint_dir, e)
+    if sc is None:
+        sc = StreamingChecker(model, checkpoint_dir=checkpoint_dir, **kw)
+    at = sc.ops_consumed
     while at < len(history):
         # feed to the end even after a verdict latches (terminal feeds
         # are cheap no-ops): evidence parity with the post-hoc path

@@ -1,18 +1,24 @@
-"""Verdict provenance: the decision path a verdict took, and evidence
-bundles built in memory.
+"""Verdict provenance: the decision path a verdict took, and durable
+evidence bundles.
 
-The port's copy of the in-memory part of the JAX package's
-``obs.provenance``.  A result carries a ``provenance`` block
-(:func:`attach`: the decision path, the engine, the config); a bundle
-(:func:`build_bundle`) adds the history's fingerprint, the verdict, the
-model, the checker and the constructive witness, and its digest
-(:func:`bundle_digest`) is a sha256 over the stability core with the
-volatile attributes stripped, so the same history checked along the
-same decision path digests the same wherever it ran.  The digest is
-byte-for-byte the JAX package's for the same payload.
+The port's copy of the JAX package's ``obs.provenance``.  A result
+carries a ``provenance`` block (:func:`attach`: the decision path, the
+engine, the config); a bundle (:func:`build_bundle`) adds the history's
+fingerprint, the verdict, the model, the checker and the constructive
+witness, and its digest (:func:`bundle_digest`) is a sha256 over the
+stability core with the volatile attributes stripped, so the same
+history checked along the same decision path digests the same wherever
+it ran.  :func:`emit` writes a checker's bundle under the run's store
+directory (``<test-dir>/evidence/<id>.json``, a ``store.durable``
+envelope) and sets the result's ``"evidence"``; :func:`verify_bundle`
+audits one (envelope CRC, digest, history fingerprint, and the witness
+re-stepped through the model or the claimed cycle re-chained).  Digests
+and envelopes are byte-for-byte the JAX package's for the same payload.
 
-Writing bundles to disk, reading, verifying and replaying them wait for
-the durable store (ROADMAP queue A6).  This module imports no torch.
+``replay_bundle`` (re-running a bundle's history pinned to its engine,
+for ``tools/evidence.py``) waits for the command line (ROADMAP queue
+A10), as do the ``provenance.*`` counters.  This module imports no
+torch.
 """
 
 from __future__ import annotations
@@ -23,11 +29,13 @@ import json
 import platform
 import socket
 import uuid
+from pathlib import Path
 from typing import Mapping, Sequence
 
-from jepsen_tpu_torch import store
-
 logger = logging.getLogger(__name__)
+
+#: durable envelope kind of evidence bundles (payload version 1).
+KIND_BUNDLE = "evidence-bundle"
 
 #: embed the raw history in the bundle when it has at most this many
 #: ops; larger histories keep only the fingerprint and op count.
@@ -57,9 +65,21 @@ _DIGEST_STRIP = frozenset({
 })
 
 
+def _register() -> None:
+    from jepsen_tpu_torch.store import durable
+
+    durable.register_kind(KIND_BUNDLE, 1)
+
+
+_register()
+
+
 def history_fingerprint(history) -> str:
-    """The canonical content fingerprint of one history."""
-    return store.fingerprint([history])
+    """The canonical content fingerprint of one history: the sha256 the
+    checkpoints key their resume on."""
+    from jepsen_tpu_torch.store import checkpoint
+
+    return checkpoint.fingerprint([history])
 
 
 def machine_fingerprint() -> dict:
@@ -220,7 +240,9 @@ def bundle_digest(payload: Mapping) -> str:
         "config": _strip(payload.get("config") or {}),
         "witness": _strip(payload.get("witness") or {}),
     }
-    return hashlib.sha256(store.canonical_bytes(core)).hexdigest()
+    from jepsen_tpu_torch.store import durable
+
+    return hashlib.sha256(durable.canonical_bytes(core)).hexdigest()
 
 
 def build_bundle(*, history, result: Mapping, source: str,
@@ -262,3 +284,242 @@ def build_bundle(*, history, result: Mapping, source: str,
         payload["history"] = [dict(op) for op in history]
     payload["digest"] = bundle_digest(payload)
     return payload
+
+
+# ---------------------------------------------------------------------------
+# Persistence
+# ---------------------------------------------------------------------------
+
+
+def write_bundle(directory, payload: Mapping) -> Path | None:
+    """Persist one bundle durably as ``<dir>/<id>.json`` (an envelope:
+    CRC, kind, version).  Returns None instead of raising when the write
+    fails: an evidence write must not lose the verdict it documents."""
+    from jepsen_tpu_torch.store import durable
+
+    try:
+        d = Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        path = d / f"{payload['id']}.json"
+        durable.write_record(path, KIND_BUNDLE, payload)
+        return path
+    except Exception as e:  # noqa: BLE001 — see docstring
+        logger.warning("evidence bundle write failed: %s", e)
+        return None
+
+
+def read_bundle(path) -> dict:
+    """Read and verify one bundle's envelope.  Raises
+    ``store.durable.DurableError`` (with its ``.report``) on a corrupt or
+    tampered envelope, which is quarantined aside."""
+    from jepsen_tpu_torch.store import durable
+
+    return durable.read_verified(path, KIND_BUNDLE).payload
+
+
+def iter_bundles(run_dir):
+    """Yield ``(path, payload)`` for every readable bundle under a run
+    directory's ``evidence/`` folder (corrupt ones are skipped with a
+    warning: they are quarantined already)."""
+    from jepsen_tpu_torch.store import durable
+
+    d = Path(run_dir)
+    ev = d / "evidence" if (d / "evidence").is_dir() else d
+    for p in sorted(ev.glob("*.json")):
+        try:
+            yield p, read_bundle(p)
+        except durable.DurableError as e:
+            logger.warning("skipping corrupt bundle %s: %s", p, e)
+
+
+def emit(test: Mapping | None, history, result: dict, *, source: str,
+         model=None, checker: str | None = None,
+         config: Mapping | None = None, opts: Mapping | None = None,
+         trace_id=None) -> dict | None:
+    """A checker's emission: build a bundle for ``result`` and write it
+    under the run's store directory (``<test-dir>/evidence/<id>.json``,
+    below ``opts["subdirectory"]`` when set).  A test map without store
+    coordinates (``name``, ``start-time-str``) writes nothing, and the
+    in-memory provenance stays on the result.  Sets ``result["evidence"]
+    = {id, digest, path}`` on success; returns the bundle; never
+    raises."""
+    try:
+        bundle = build_bundle(
+            history=history, result=result, source=source, model=model,
+            checker=checker, config=config, trace_id=trace_id,
+        )
+    except Exception as e:  # noqa: BLE001 — provenance never loses verdicts
+        logger.warning("evidence bundle build failed: %s", e)
+        return None
+    test = test or {}
+    if not (test.get("name") and test.get("start-time-str")):
+        return bundle
+    from jepsen_tpu_torch import store
+
+    d = store.test_dir(test)
+    sub = (opts or {}).get("subdirectory")
+    d = d / sub if sub else d
+    path = write_bundle(d / "evidence", bundle)
+    if path is not None:
+        result["evidence"] = {
+            "id": bundle["id"], "digest": bundle["digest"],
+            "path": str(path),
+        }
+    return bundle
+
+
+# ---------------------------------------------------------------------------
+# Verify: structural audit and witness re-validation
+# ---------------------------------------------------------------------------
+
+
+def _check_linearization(model, history, order: Sequence[Mapping]) -> list[str]:
+    """Re-step the model through a claimed linearization: every step must
+    be consistent, and the order must fire every completed effective op
+    that ``wgl_cpu.prepare`` derives from the history and nothing more
+    often than the history offers (a crashed op may be absent)."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.checker import wgl_cpu
+
+    errors: list[str] = []
+    state = model
+    for n, op in enumerate(order):
+        state = state.step(op)
+        if m.is_inconsistent(state):
+            errors.append(
+                f"witness step {n} inconsistent: f={op.get('f')!r} "
+                f"value={op.get('value')!r} ({state.msg})"
+            )
+            return errors
+    _events, eff_ops, crashed = wgl_cpu.prepare(model, history)
+
+    def _key(op):
+        return (op.get("f"), json.dumps(op.get("value"), sort_keys=True,
+                                        default=str))
+
+    want: dict = {}
+    want_ok: dict = {}
+    got: dict = {}
+    for i, op in eff_ops.items():
+        want[_key(op)] = want.get(_key(op), 0) + 1
+        if i not in crashed:
+            want_ok[_key(op)] = want_ok.get(_key(op), 0) + 1
+    for op in order:
+        got[_key(op)] = got.get(_key(op), 0) + 1
+    for k, n in got.items():
+        if n > want.get(k, 0):
+            errors.append(f"witness fires op {k} {n}x but history has "
+                          f"{want.get(k, 0)}")
+    for k, n in want_ok.items():
+        if got.get(k, 0) < n:
+            errors.append(
+                f"witness omits completed op {k} ({got.get(k, 0)} fired, "
+                f"{n} required)"
+            )
+    return errors
+
+
+def _check_cycle(anomalies: Mapping) -> list[str]:
+    """A claimed cycle must cycle: every step's ``to`` is the next step's
+    ``from``, and the last closes back to the first."""
+    errors: list[str] = []
+    for name, cycles in (anomalies or {}).items():
+        for ci, c in enumerate(cycles or ()):
+            steps = c.get("steps") or []
+            if not steps:
+                errors.append(f"anomaly {name}[{ci}]: no steps")
+                continue
+            for si, st in enumerate(steps):
+                nxt = steps[(si + 1) % len(steps)]
+                if st.get("to") != nxt.get("from"):
+                    errors.append(
+                        f"anomaly {name}[{ci}]: step {si} does not chain "
+                        f"(to != next.from) — the claimed cycle does not "
+                        "cycle"
+                    )
+                    break
+            cyc = c.get("cycle")
+            if cyc and len(cyc) != len(steps):
+                errors.append(
+                    f"anomaly {name}[{ci}]: {len(cyc)} ops vs "
+                    f"{len(steps)} steps"
+                )
+    return errors
+
+
+_REQUIRED = ("id", "source", "verdict", "history_fingerprint",
+             "decision_path", "engine", "digest")
+
+
+def verify_bundle(bundle, *, path=None) -> dict:
+    """Audit one bundle; returns ``{"ok": bool, "checks": [...],
+    "errors": [...]}``.  ``bundle`` is a payload dict or a path (then the
+    envelope CRC is checked first, and a tampered envelope fails with
+    the durable layer's report under ``"envelope"``)."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.store import durable
+
+    checks: list[str] = []
+    errors: list[str] = []
+    report = {"ok": False, "checks": checks, "errors": errors}
+    if not isinstance(bundle, Mapping):
+        path = bundle
+        try:
+            bundle = read_bundle(path)
+        except durable.DurableError as e:
+            errors.append(f"envelope: {e}")
+            report["envelope"] = e.report
+            return report
+        checks.append("envelope-crc")
+    for k in _REQUIRED:
+        if bundle.get(k) in (None, ""):
+            errors.append(f"missing required field: {k}")
+    if errors:
+        return report
+    checks.append("required-fields")
+    if bundle_digest(bundle) != bundle["digest"]:
+        errors.append("digest mismatch: stability core was altered after "
+                      "the digest was computed")
+        return report
+    checks.append("digest")
+    history = bundle.get("history")
+    if history is not None:
+        if history_fingerprint(history) != bundle["history_fingerprint"]:
+            errors.append("history fingerprint mismatch: embedded history "
+                          "was altered")
+            return report
+        checks.append("history-fingerprint")
+    witness = bundle.get("witness")
+    if witness:
+        wt = witness.get("type")
+        if wt == "linearization":
+            if bundle.get("model") and history is not None:
+                model = m.model(bundle["model"])
+                errs = _check_linearization(
+                    model, history, witness.get("order") or ())
+                if errs:
+                    errors.extend(errs)
+                    return report
+                checks.append("witness-linearization")
+            else:
+                checks.append("witness-linearization-skipped")
+        elif wt == "cycle":
+            errs = _check_cycle(witness.get("anomalies") or {})
+            if errs:
+                errors.extend(errs)
+                return report
+            checks.append("witness-cycle")
+        elif wt == "refutation":
+            op = witness.get("op")
+            if history is not None and op is not None:
+                fv = (op.get("f"), op.get("process"))
+                if not any((o.get("f"), o.get("process")) == fv
+                           for o in history):
+                    errors.append("refutation op not present in history")
+                    return report
+            checks.append("witness-refutation")
+    elif bundle["verdict"] == "false":
+        errors.append("refuted verdict carries no witness payload")
+        return report
+    report["ok"] = True
+    return report

@@ -31,17 +31,20 @@ confirms every refutation on the exact CPU sweep.  Anything else is
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import faults
 from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import models as m
 from jepsen_tpu_torch._platform import resolve_device
 from jepsen_tpu_torch.convert import fok_bits
 from jepsen_tpu_torch.checker import wgl_cpu
 from jepsen_tpu_torch.models import tensor as tmodels
+from jepsen_tpu_torch.obs import provenance as _prov
 from jepsen_tpu_torch.ops import spill as spill_mod
 from jepsen_tpu_torch.ops.hashing import (
     MASK32,
@@ -49,6 +52,8 @@ from jepsen_tpu_torch.ops.hashing import (
     frontier_update_fast,
     resolve_dedup_backend,
 )
+
+logger = logging.getLogger(__name__)
 
 
 class NotTensorizable(Exception):
@@ -789,21 +794,17 @@ def _chunk_tables(tables: dict, lo: int, hi: int) -> dict:
 #: ceil(n_in / _MAX_SLICES) entry rows per slice.
 _MAX_SLICES = 64
 
-#: The queue that holds the services the chunked engine and the ladder
-#: refuse (deadlines, checkpoints, admission, provenance).
-SERVICES_QUEUE = "ROADMAP queue A6"
 
+class _LaunchDegraded(Exception):
+    """A chunk scan's launch failed under ``faults.call_with_retry``:
+    the capacity it ran at, the failure's one-line description, and the
+    slice scans launched before it in this chunk attempt."""
 
-def _refuse_services(deadline, checkpoint_dir, resume) -> None:
-    """Deadlines and chunk checkpoints are not ported: refuse them."""
-    for name, val in (("deadline", deadline),
-                      ("checkpoint_dir", checkpoint_dir)):
-        if val is not None:
-            raise NotImplementedError(
-                f"{name} is not ported to the chunked engine ({SERVICES_QUEUE})")
-    if resume:
-        raise NotImplementedError(
-            f"resume is not ported to the chunked engine ({SERVICES_QUEUE})")
+    def __init__(self, capacity: int, cause: str, launches: int):
+        self.capacity = capacity
+        self.cause = cause
+        self.launches = launches
+        super().__init__(cause)
 
 
 def _chunk_bounds(quiet, B0: int, target: int) -> list[tuple[int, int]]:
@@ -838,6 +839,8 @@ def _scan_slices(step, F: int, rounds: int, fast: bool, dedup: str,
     f_state, f_fok, f_fcr = frontier
     n_in = f_state.shape[0]
     outs = []
+    ctx = dict(what="wgl.chunk", engine="fast" if fast else "exact",
+               capacity=F, lanes=1)
     for a in cuts:
         b = min(a + width, n_in)
         k = max(1, b - a)  # the initial 1-row frontier case
@@ -849,14 +852,25 @@ def _scan_slices(step, F: int, rounds: int, fast: bool, dedup: str,
         fo0[:k] = f_fok[a:a + k]
         fc0[:k] = f_fcr[a:a + k]
         al0[: b - a] = True
-        s, fo, fc, al, failed_at, lossy, peak = _scan_chunk_core(
-            step, F, rounds, fast,
-            *(torch.from_numpy(x).to(dev)[None] for x in (st0, fo0, fc0, al0)),
-            c_tables, slot_lane, slot_onehot, dedup=dedup)
-        fat, lz, pk = torch.stack([failed_at.long(), lossy.long(),
-                                   peak.long()], 1)[0].tolist()
+
+        def scan():
+            s, fo, fc, al, failed_at, lossy, peak = _scan_chunk_core(
+                step, F, rounds, fast,
+                *(torch.from_numpy(x).to(dev)[None]
+                  for x in (st0, fo0, fc0, al0)),
+                c_tables, slot_lane, slot_onehot, dedup=dedup)
+            fat, lz, pk = torch.stack([failed_at.long(), lossy.long(),
+                                       peak.long()], 1)[0].tolist()
+            return s[0], fo[0], fc[0], al[0], fat, bool(lz), pk
+
+        try:
+            out = faults.call_with_retry(scan, ctx)
+        except faults.LaunchFailure as lf:
+            cause = faults.describe(lf.cause)
+            faults.release(lf)
+            raise _LaunchDegraded(F, cause, len(outs)) from None
         SCAN_SYNCS += 1
-        outs.append((s[0], fo[0], fc[0], al[0], fat, bool(lz), pk))
+        outs.append(out)
     return outs
 
 
@@ -890,7 +904,10 @@ def _attempt_chunk(step, rounds: int, fast: bool, dedup: str, c_tables: dict,
     barrier under spill), a loss at the top rung retries with slices
     half as wide, down to ``_MAX_SLICES`` slices, while the spill work
     (``spill_left`` extra slices and retries) lasts.  ``ring`` drops a
-    failed attempt's pending rows."""
+    failed attempt's pending rows.  ``on_event`` receives "escalation"
+    and "slice-narrowing".  A launch that fails under the retry policy
+    raises ``_LaunchDegraded`` (its launches counting every attempt's),
+    with ``ring``'s pending rows dropped."""
     def ok(i: int) -> bool:
         return usable is None or usable(i)
 
@@ -907,8 +924,14 @@ def _attempt_chunk(step, rounds: int, fast: bool, dedup: str, c_tables: dict,
         cuts = list(range(0, n_in, width)) if spill else []
         cuts = cuts or [0]
         spent += len(cuts) - 1
-        outs = _scan_slices(step, F, rounds, fast, dedup, c_tables, slot_lane,
-                            slot_onehot, frontier, cuts, width, W, G, dev)
+        try:
+            outs = _scan_slices(step, F, rounds, fast, dedup, c_tables,
+                                slot_lane, slot_onehot, frontier, cuts, width,
+                                W, G, dev)
+        except _LaunchDegraded as e:
+            if ring is not None:
+                ring.discard()
+            raise _LaunchDegraded(F, e.cause, launches + e.launches) from None
         launches += len(outs)
         # without spill, an entry frontier past F is truncated: loss
         trunc = not spill and n_in > F
@@ -927,6 +950,8 @@ def _attempt_chunk(step, rounds: int, fast: bool, dedup: str, c_tables: dict,
               and width > max(1, (n_in + _MAX_SLICES - 1) // _MAX_SLICES)):
             # a single barrier still overflowing: narrower slices at the
             # same capacity before declaring exhaustion
+            if on_event is not None:
+                on_event("slice-narrowing", barrier=barrier)
             spent += 1
             width = max(max(1, (n_in + _MAX_SLICES - 1) // _MAX_SLICES),
                         width // 2)
@@ -1027,13 +1052,27 @@ def chunked_analysis(
     verified-barriers (passed with no loss), witnessed-barriers, and
     bar-opid at a death.
 
-    ``deadline``, ``checkpoint_dir`` and ``resume`` are refused
-    (``SERVICES_QUEUE``).  ``device``: the card unless the caller asks
-    for "cpu".
+    Services, as in the JAX package: ``deadline`` (seconds or a
+    ``faults.Deadline``) is polled at chunk boundaries, and on expiry the
+    run returns ``unknown`` with cause ``deadline-exceeded`` (and a
+    pointer to the checkpoint, when one is kept).  Every chunk scan runs
+    under ``faults.call_with_retry``; a scan that still fails (or runs
+    out of memory: one history has no sub-batch to halve) degrades this
+    history to ``unknown``, its cause naming the error.
+    ``checkpoint_dir`` persists the scan cursor and the carried frontier
+    (host-spilled rows included) after every accepted chunk
+    (``store.checkpoint.save_chunked``); ``resume=True`` reloads it when
+    its fingerprint and config match (else the stale pair is quarantined
+    and the scan starts fresh), so a kill between chunks and a resume
+    give the uninterrupted verdict; a finished run's checkpoint returns
+    its saved result.  Every result carries a ``provenance`` block: the
+    scan, its escalations, bisections, slice narrowing, truncations and
+    fault events.  ``device``: the card unless the caller asks for
+    "cpu".
     """
-    _refuse_services(deadline, checkpoint_dir, resume)
     dev = resolve_device(device)
     dedup = resolve_dedup_backend(dedup_backend)
+    deadline = faults.Deadline.coerce(deadline)
     B0 = packed["B"]
     quiet = packed["bar_quiet"]
     budget_mb = spill_mod.resolve_budget_mb(frontier_budget_mb)
@@ -1051,7 +1090,26 @@ def chunked_analysis(
     caps = [int(c) for c in capacities]
     b_rows = spill_mod.budget_rows(budget_mb, W, G, P)
     step = packed["step"]
-    tables, slot_lane, slot_onehot = _history_tables(packed, dev)
+
+    # The decision path (obs.provenance) attached to every return.
+    traj: list[dict] = []
+    prov_engine = {
+        "engine": "chunked-fast" if fast else "chunked-exact",
+        "dedup_backend": dedup, "spill": spill_on,
+    }
+    prov_cfg = {
+        "capacity": caps, "rounds": int(rounds),
+        "chunk_barriers": int(chunk_barriers), "fast": bool(fast),
+        "frontier_budget_mb": budget_mb,
+        "spill_launches": spill_launches, "factor_groups": bool(factor_groups),
+    }
+
+    def _pv(event: str, **attrs) -> None:
+        if len(traj) < _prov.MAX_PATH:
+            traj.append({"event": event, **attrs})
+
+    def _finish(res: dict) -> dict:
+        return _prov.attach(res, traj, engine=prov_engine, config=prov_cfg)
 
     def _usable(i: int) -> bool:
         """Rung i fits the device budget (rung 0 always runs)."""
@@ -1068,16 +1126,96 @@ def chunked_analysis(
     peak_g = 1
     verified = 0
     launches = 0
+    start_barrier = 0
+    resume_spill_spent = 0
     ring = spill_mod.HostRing(W, G)
     exhaust_rep: dict | None = None
 
-    spans = _chunk_bounds(quiet, B0, int(chunk_barriers))
+    # ------------------------------------------------------------------
+    # Chunk checkpoint and resume (store.checkpoint's chunk pair).
+    # ------------------------------------------------------------------
+    ckpt = None
+    ck_cfg = None
+    if checkpoint_dir is not None or resume:
+        from jepsen_tpu_torch.store import checkpoint as ckpt
+
+        ck_cfg = {
+            "fingerprint": ckpt.fingerprint([history]),
+            "capacity": caps, "rounds": int(rounds),
+            "chunk_barriers": int(chunk_barriers), "fast": bool(fast),
+            "dedup": dedup, "budget_mb": budget_mb,
+            "spill_factor": float(spill_factor),
+            "spill_launches": spill_launches,
+            "factor_groups": bool(factor_groups), "spill": spill_on,
+        }
+    if (resume and checkpoint_dir is not None
+            and ckpt.chunked_exists(checkpoint_dir)):
+        saved = None
+        try:
+            saved = ckpt.load_chunked(checkpoint_dir)
+        except ckpt.CheckpointError as e:
+            logger.warning("unreadable chunk checkpoint in %s (%s); running "
+                           "fresh", checkpoint_dir, e)
+        if saved is not None and saved["config"] != ck_cfg:
+            quarantined = ckpt.quarantine_chunked(
+                checkpoint_dir, reason="stale-fingerprint")
+            logger.warning(
+                "chunk checkpoint in %s was written for different inputs "
+                "or config; running fresh (stale files quarantined: %s)",
+                checkpoint_dir, quarantined)
+            saved = None
+        if saved is not None:
+            if saved["result"] is not None:
+                # a finished run: its result, provenance and all
+                return saved["result"]
+            st, fo, fc = saved["frontier"]
+            f_state = np.asarray(st, np.int32)
+            f_fok = fok_bits(fo)
+            f_fcr = np.asarray(fc, np.int16)
+            start_barrier = saved["barrier"]
+            idx = min(saved["cap_idx"], len(caps) - 1)
+            lossy_any = saved["lossy"]
+            verified = saved["verified"]
+            launches = saved["launches"]
+            resume_spill_spent = saved.get("spill_spent", 0)
+            _pv("checkpoint.restored", barrier=start_barrier)
+
+    def _save_ck(barrier: int, result: dict | None = None) -> str | None:
+        """Persist the chunk cursor and the carried frontier (fok as the
+        JAX package's uint32); a failed save is logged, never fatal."""
+        if checkpoint_dir is None:
+            return None
+        try:
+            p = ckpt.save_chunked(
+                checkpoint_dir, config=ck_cfg, barrier=barrier, cap_idx=idx,
+                frontier=(f_state, np.asarray(f_fok).view(np.uint32), f_fcr),
+                lossy=lossy_any, verified=verified, launches=launches,
+                spill_rows=ring.rows_total, spill_bytes=ring.bytes_total,
+                spill_spent=spill_spent, result=result,
+            )
+            return str(p)
+        except Exception:  # noqa: BLE001 — a recovery aid, not a verdict input
+            logger.warning("couldn't write chunk checkpoint to %s",
+                           checkpoint_dir, exc_info=True)
+            return None
+
+    def _offset_bounds(start: int) -> list[tuple[int, int]]:
+        if start >= B0:
+            return []
+        rel = _chunk_bounds(quiet[start:], B0 - start, int(chunk_barriers))
+        return [(start + a, start + b) for a, b in rel]
+
+    spans = _offset_bounds(start_barrier)
     n_spans0 = len(spans)
+    # the whole history's span count: a resumed run's default spill
+    # budget must equal the uninterrupted run's
+    n_spans_full = n_spans0 if start_barrier == 0 else len(_offset_bounds(0))
     spill_budget = (
         int(spill_launches) if spill_launches is not None
-        else 2 * max(1, n_spans0) + 8
+        else 2 * max(1, n_spans_full) + 8
     )
-    spill_spent = 0
+    spill_spent = resume_spill_spent
+    tables, slot_lane, slot_onehot = _history_tables(packed, dev)
 
     def _stats(capacity: int) -> dict:
         s = {
@@ -1097,22 +1235,56 @@ def chunked_analysis(
             **kw)
 
     def _attach_report(res: dict) -> dict:
-        """An unknown that exhausted fixed memory carries the report."""
+        """An unknown that exhausted fixed memory carries the report; only
+        the generic capacity cause is rewritten to it (a deadline or a
+        failed launch keeps its own cause)."""
         if exhaust_rep is not None and res.get("valid?") == "unknown":
             res["undecidability"] = exhaust_rep
-            res["cause"] = spill_mod.undecidable_cause(exhaust_rep)
+            if res.get("cause") in (
+                    None, "frontier capacity or closure rounds exhausted"):
+                res["cause"] = spill_mod.undecidable_cause(exhaust_rep)
         return res
 
+    _pv("wgl.chunk.scan", barriers=int(B0), chunks=len(spans),
+        capacity=caps[idx], start_barrier=start_barrier)
     si = 0
     while si < len(spans):
         lo, hi = spans[si]
+        if deadline is not None and deadline.expired():
+            _pv("fault.deadline", at="wgl-chunk", barrier=lo)
+            ck = _save_ck(lo)
+            note = f"; resumable checkpoint: {ck}" if ck else ""
+            stats = _stats(caps[idx])
+            stats["verified-barriers"] = verified
+            return _finish(_attach_report({
+                "valid?": "unknown",
+                "cause": ("deadline-exceeded: check budget exhausted at "
+                          f"barrier {lo}/{B0}{note}"),
+                "kernel": stats,
+            }))
         n_in = f_state.shape[0]
-        att = _attempt_chunk(
-            step, int(rounds), fast, dedup, _chunk_tables(tables, lo, hi),
-            slot_lane, slot_onehot, (f_state, f_fok, f_fcr), caps, idx, W, G,
-            dev, spill=spill_on,
-            usable=_usable, narrow=spill_on and (hi - lo) == 1,
-            spill_left=spill_budget - spill_spent, ring=ring)
+
+        def on_event(event: str, **attrs) -> None:
+            _pv("chunk." + event, **attrs)
+
+        try:
+            att = _attempt_chunk(
+                step, int(rounds), fast, dedup, _chunk_tables(tables, lo, hi),
+                slot_lane, slot_onehot, (f_state, f_fok, f_fcr), caps, idx,
+                W, G, dev, spill=spill_on, usable=_usable,
+                narrow=spill_on and (hi - lo) == 1,
+                spill_left=spill_budget - spill_spent, ring=ring,
+                on_event=on_event, barrier=lo)
+        except _LaunchDegraded as e:
+            launches += e.launches
+            _pv("fault.launch-degraded", capacity=e.capacity, error=e.cause)
+            stats = _stats(e.capacity)
+            stats["verified-barriers"] = verified
+            return _finish(_attach_report({
+                "valid?": "unknown",
+                "cause": f"device launch failed: {e.cause}",
+                "kernel": stats,
+            }))
         slice_outs, any_lossy, peak_total, idx = (att.outs, att.lossy,
                                                   att.peak, att.idx)
         launches += att.launches
@@ -1126,11 +1298,13 @@ def chunked_analysis(
             rel = _chunk_bounds(quiet[lo:hi], hi - lo,
                                 max(1, (hi - lo + 1) // 2))
             spans[si:si + 1] = [(lo + a, lo + b) for a, b in rel]
+            _pv("chunk.bisection", barrier=lo)
             spill_spent += 1
             continue
         if spill_on and spill_spent >= spill_budget:
             # the spill work budget is spent: truncation from here on
             spill_on = False
+            _pv("spill.budget-exhausted", barrier=lo)
             if exhaust_rep is None:
                 exhaust_rep = _report(
                     capacity=caps[idx], frontier_rows=n_in,
@@ -1152,16 +1326,18 @@ def chunked_analysis(
             stats["verified-barriers"] = verified
             stats["witnessed-barriers"] = gb
             if lossy_any:
-                return _attach_report({
+                _pv("chunk.lossy-death", barrier=gb)
+                return _finish(_attach_report({
                     "valid?": "unknown",
                     "cause": "frontier capacity or closure rounds exhausted",
                     "op": history[op_pos],
                     "kernel": stats,
-                })
+                }))
+            _pv("chunk.refuted", barrier=gb, provisional=bool(fast))
             res = {"valid?": False, "op": history[op_pos], "kernel": stats}
             if fast:
                 res["provisional?"] = True  # hash-decided kills
-            return res
+            return _finish(res)
         if not lossy_any:
             verified = hi
         f_state, f_fok, f_fcr = _survivors(slice_outs, ring)
@@ -1174,17 +1350,21 @@ def chunked_analysis(
                 exhaust_rep = _report(
                     capacity=caps[idx], frontier_rows=rows,
                     peak_frontier=peak_g, barrier=hi, reason="host-budget")
+            _pv("frontier.truncated", reason="host-budget", barrier=hi)
             f_state = f_state[:host_rows_max]
             f_fok = f_fok[:host_rows_max]
             f_fcr = f_fcr[:host_rows_max]
             lossy_any = True
             rows = host_rows_max
         idx = _step_down(idx, caps, peak_total, rows)
+        _save_ck(hi)
         si += 1
     stats = _stats(caps[idx])
     stats["verified-barriers"] = verified
     stats["witnessed-barriers"] = B0  # the survivor is the whole witness
-    return {"valid?": True, "kernel": stats}
+    result = _finish({"valid?": True, "kernel": stats})
+    _save_ck(B0, result=result)
+    return result
 
 
 def scan_barrier_range(
@@ -1218,13 +1398,15 @@ def scan_barrier_range(
     ``spill`` slices an overflowing entry frontier through the same scan
     and merges the survivors exactly; without it the overflow truncates
     and latches ``lossy``.  ``on_event(event, **attrs)`` receives the
-    escalation and truncation events.  ``device``: the card unless the
-    caller asks for "cpu".
+    escalation, truncation and launch-degraded events.  Each chunk scan
+    runs under ``faults.call_with_retry``; one that still fails ends the
+    range with ``"error"`` set to its description.  ``device``: the card
+    unless the caller asks for "cpu".
 
     Returns {"frontier": surviving (state, fok int32 bits, fcr),
     "failed_barrier": the global barrier the frontier died at or None,
     "cap_idx", "lossy": to thread into the next call, "launches",
-    "peak", "error": None}.
+    "peak", "error": None or the failed launch's description}.
     """
     dev = resolve_device(device)
     dedup = resolve_dedup_backend(dedup_backend)
@@ -1243,11 +1425,11 @@ def scan_barrier_range(
         if on_event is not None:
             on_event(event, **attrs)
 
-    def _out(failed=None):
+    def _out(failed=None, error=None):
         return {
             "frontier": (f_state, f_fok, f_fcr),
             "failed_barrier": failed, "cap_idx": idx, "lossy": lossy_any,
-            "launches": launches, "peak": peak_g, "error": None,
+            "launches": launches, "peak": peak_g, "error": error,
         }
 
     if hi <= lo:
@@ -1258,11 +1440,16 @@ def scan_barrier_range(
         for a, b in _chunk_bounds(quiet[lo:hi], hi - lo, int(chunk_barriers))
     ]
     for clo, chi in spans:
-        att = _attempt_chunk(
-            packed["step"], int(rounds), fast, dedup,
-            _chunk_tables(tables, clo, chi), slot_lane, slot_onehot,
-            (f_state, f_fok, f_fcr), caps, idx, W, G, dev, spill=spill,
-            on_event=_ev, barrier=clo)
+        try:
+            att = _attempt_chunk(
+                packed["step"], int(rounds), fast, dedup,
+                _chunk_tables(tables, clo, chi), slot_lane, slot_onehot,
+                (f_state, f_fok, f_fcr), caps, idx, W, G, dev, spill=spill,
+                on_event=_ev, barrier=clo)
+        except _LaunchDegraded as e:
+            launches += e.launches
+            _ev("launch-degraded", capacity=e.capacity, error=e.cause)
+            return _out(error=e.cause)
         idx = att.idx
         launches += att.launches
         peak_g = max(peak_g, att.peak_max)
@@ -1324,8 +1511,9 @@ def analysis(
     exact unless the frontier lost rows (then "unknown"), and provisional
     with ``fast``.  ``capacity`` may be a sequence: the per-chunk
     escalation ladder of ``chunked_analysis``, which takes every other
-    argument.  ``device``: the card unless the caller asks for "cpu"."""
-    _refuse_services(deadline, checkpoint_dir, resume)
+    argument, the services (``deadline``, ``checkpoint_dir``,
+    ``resume``) among them.  ``device``: the card unless the caller asks
+    for "cpu"."""
     packed, decided = _admit(model, history, max_groups, max_procs)
     if decided is not None:
         if decided["valid?"] is True:
@@ -1334,10 +1522,10 @@ def analysis(
     capacities = [capacity] if isinstance(capacity, int) else list(capacity)
     return chunked_analysis(
         model, history, packed, capacities, rounds, chunk_barriers, fast=fast,
-        dedup_backend=dedup_backend, spill=spill,
+        dedup_backend=dedup_backend, deadline=deadline, spill=spill,
         frontier_budget_mb=frontier_budget_mb, spill_factor=spill_factor,
         spill_launches=spill_launches, factor_groups=factor_groups,
-        device=device,
+        checkpoint_dir=checkpoint_dir, resume=resume, device=device,
     )
 
 

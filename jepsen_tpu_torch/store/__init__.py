@@ -1,17 +1,23 @@
 """The run store's paths and writes that the checkers use.
 
-A copy of the part of the JAX package's ``store`` that the checkers
-need: a test's directory (``<store-dir>/<name>/<start-time-str>``),
-atomic JSON and history writes, and the canonical JSON forms the
-evidence digests hash (``fingerprint``, the list-of-dicts branch of
-``store.checkpoint.fingerprint``; ``canonical_bytes``, of
-``store.durable``).  The rest of the store (checkpoints, durable
-envelopes, evidence bundles on disk) is ROADMAP queue A6.
+A copy of the part of the JAX package's ``store`` package that the
+checkers and the engines need: a test's directory
+(``<store-dir>/<name>/<start-time-str>``), atomic JSON and history
+writes and the JSON form of what they write (``_jsonable``).
+``store.durable`` wraps artifacts in checksummed envelopes (and holds
+``canonical_bytes``, what checksums and digests hash), and
+``store.checkpoint`` keeps the engines' checkpoints and the histories'
+``fingerprint``; the test-map phases (``save_0``..``save_2``), the block
+file format and the readers wait for ROADMAP queue A10.
+
+Every ``_atomic_write`` step announces itself through
+``faults.INJECT`` (the crashpoint seam, as in the JAX package).  The
+package imports no torch: the confirmation workers import it.
 """
 
 from __future__ import annotations
 
-import hashlib
+import contextlib
 import json
 import os
 import tempfile
@@ -35,6 +41,10 @@ def _jsonable(x: Any):
     if isinstance(x, Mapping):
         return {str(k): _jsonable(v) for k, v in x.items()}
     if isinstance(x, (list, tuple, set, frozenset)):
+        return [_jsonable(v) for v in x]
+    from jepsen_tpu_torch import history as _h
+
+    if isinstance(x, _h.ColumnHistory):
         return [_jsonable(v) for v in x]
     if isinstance(x, (str, int, float, bool)) or x is None:
         return x
@@ -63,11 +73,28 @@ def _fsync_dir(d: Path) -> None:
         os.close(fd)
 
 
+def _write_seam(step: str, path) -> None:
+    """The crashpoint seam: each ``_atomic_write`` step announces itself
+    through ``faults.INJECT`` (ctx ``what="store.atomic_write"``, ``step``
+    one of post-tmp, post-fsync, post-rename, pre-dir-fsync), so a test
+    can die at exactly that step."""
+    from jepsen_tpu_torch import faults
+
+    hook = faults.INJECT
+    if hook is not None:
+        hook({"what": "store.atomic_write", "step": step,
+              "path": str(path)}, 0)
+
+
 def _atomic_write(path: Path, data: str | bytes):
     """tmp + fsync + rename + dir fsync: a reader never sees a torn file,
     and a completed write survives a power cut.  The tmp name is unique
     per writer (mkstemp), so concurrent writers of one path stay
-    last-writer-wins, each write atomic."""
+    last-writer-wins, each write atomic; a crashed writer's ``*.tmp`` is
+    reclaimed by ``durable.sweep_tmp``.  A ``faults.CrashPoint`` raised
+    in a write seam simulates a death at that step: no cleanup runs."""
+    from jepsen_tpu_torch import faults
+
     path = Path(path)
     fd, tmp = tempfile.mkstemp(
         dir=str(path.parent or "."), prefix=path.name + ".", suffix=".tmp"
@@ -77,15 +104,18 @@ def _atomic_write(path: Path, data: str | bytes):
         with os.fdopen(fd, "wb" if binary else "w") as f:
             f.write(data)
             f.flush()
+            _write_seam("post-tmp", path)
             os.fsync(f.fileno())
+        _write_seam("post-fsync", path)
         os.chmod(tmp, 0o644)  # mkstemp's 0600 would hide artifacts from other readers
         os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
+    except BaseException as e:
+        if not isinstance(e, faults.CrashPoint):
+            with contextlib.suppress(OSError):
+                os.unlink(tmp)
         raise
+    _write_seam("post-rename", path)
+    _write_seam("pre-dir-fsync", path)
     _fsync_dir(path.parent)
 
 
@@ -105,33 +135,3 @@ def write_history(d: Path, history: Sequence[Mapping]):
             f"{o.get('type', ''):<8} {str(o.get('f', '')):<16} {o.get('value', '')!r}"
         )
     _atomic_write(d / "history.txt", "\n".join(txt) + ("\n" if txt else ""))
-
-
-def fingerprint(histories: Sequence[Sequence[Mapping]]) -> str:
-    """A stable identity for the checked inputs: sha256 over every op's
-    (type, process, f, value) in order, per history."""
-    h = hashlib.sha256()
-    for hist in histories:
-        h.update(b"\x00")
-        for o in hist:
-            h.update(
-                json.dumps(
-                    [
-                        _jsonable(o.get("type")),
-                        _jsonable(o.get("process")),
-                        _jsonable(o.get("f")),
-                        _jsonable(o.get("value")),
-                    ],
-                    separators=(",", ":"),
-                    default=str,
-                ).encode()
-            )
-    return h.hexdigest()
-
-
-def canonical_bytes(payload) -> bytes:
-    """Sorted-key, separator-free canonical JSON of a payload (stable
-    across dict insertion order and whitespace): what digests hash."""
-    return json.dumps(
-        _jsonable(payload), sort_keys=True, separators=(",", ":"), default=str,
-    ).encode()

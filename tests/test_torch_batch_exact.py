@@ -118,7 +118,8 @@ def test_mesh_fallback_matches_jax(case, monkeypatch):
     """mesh_kernel_analysis falls back to wgl.analysis(fast=True) on one
     shard and where the geometry is infeasible (the wide floor above the
     rung); the port's result equals its own chunked engine and the JAX
-    package's fallback on the same history."""
+    package's fallback on the same history, decision path included (the
+    engine blocks name each package's own fused backend)."""
     hist = corrupt(valid_register_history(20, 3, seed=0, info_rate=0.1), seed=0)
     if case == "one-shard":
         pmesh, jmesh, cap = make_mesh(1, device="cpu"), jax_make_mesh(1), 64
@@ -133,7 +134,8 @@ def test_mesh_fallback_matches_jax(case, monkeypatch):
                             fast=True, dedup_backend="fused", device="cpu")
     want = jsh.mesh_kernel_analysis(jm.CASRegister(None), hist, jmesh,
                                     capacity=(cap,))
-    want.pop("provenance", None)
+    paths = [r.pop("provenance")["path"] for r in (got, chunked, want)]
+    assert paths[0] == paths[1] == paths[2]
     assert got == chunked == want
     assert got["valid?"] is False and got["provisional?"] is True
     jwgl.evict_runner_caches()

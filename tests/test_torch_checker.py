@@ -12,9 +12,9 @@ tests/test_parallel.py.  The port runs with ``"device": "cpu"`` (its
 plain kernel versions).  Tolerance 0 everywhere: the outputs compared
 are verdicts, ops, strings and sha256 digests.
 
-The refusals of what is not ported (deadlines that reach a device
-engine, the ladder's checkpoints and resume) must name ROADMAP queue A6
-and, under ``check_safe``, become an ``unknown`` carrying that message.
+The services the checkers pass to the engines (a deadline, the ladder's
+checkpoints and resume, stream checkpoints) give the JAX package's
+verdicts, causes and checkpoint cursors.
 """
 
 import dataclasses
@@ -671,50 +671,123 @@ def test_independent_writes_per_key_artifacts(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Refusals: ROADMAP queue A6
+# The services the checkers pass to the engines (deadlines, checkpoints,
+# resume), once refused, now run
 # ---------------------------------------------------------------------------
 
 
-def _refusal_cases():
-    from jepsen_tpu_torch.checker import streaming as ts
+def _service_cases():
+    """Each case runs one service through a package's checkers:
+    ``run(lin, streaming, checker_mod, faults, model, hist, d)`` gives
+    what is compared between the packages."""
+    def lin_of(lin, model, alg):
+        return lin.linearizable({"model": model, "algorithm": alg,
+                                 "kernel-opts": {"capacity": CAP}})
 
-    hist = mixed_histories(6)[1]
-    model = tm.CASRegister(None)
+    def tpu_deadline(lin, st, chk, faults, model, hist, d):
+        c = lin_of(lin, model, "tpu")
+        spent = chk.check_safe(c, {}, hist, {"deadline": faults.Deadline(0.0)})
+        return [chk.check_safe(c, {}, hist, {"check-deadline": 60})["valid?"],
+                spent["valid?"], spent["cause"]]
 
-    def lin(alg="tpu"):
-        return tlin.linearizable({"model": model, "algorithm": alg,
-                                  "device": "cpu", "kernel-opts": {"capacity": CAP}})
+    def batch_deadline(lin, st, chk, faults, model, hist, d):
+        c = lin_of(lin, model, "competition")
+        hs = mixed_histories(6)
+        ok = c.check_batch({}, hs, {"deadline": faults.Deadline(60.0)})
+        spent = c.check_batch({}, hs, {"deadline": faults.Deadline(0.0)})
+        return ([r["valid?"] for r in ok], [r["valid?"] for r in spent],
+                [r["cause"].startswith("deadline-exceeded") for r in spent])
+
+    def batch_checkpoint(lin, st, chk, faults, model, hist, d):
+        c = lin_of(lin, model, "competition")
+        out = c.check_batch({}, mixed_histories(6), {"checkpoint-dir": d})
+        doc = json.loads((d / "checker-checkpoint.json").read_text())
+        return ([r["valid?"] for r in out], doc["payload"]["complete"],
+                doc["payload"]["stage"])
+
+    def batch_resume(lin, st, chk, faults, model, hist, d):
+        c = lin_of(lin, model, "tpu")
+        hs = mixed_histories(6)
+        c.check_batch({}, hs, {"checkpoint-dir": d,
+                               "deadline": faults.Deadline(0.0)})
+        out = c.check_batch({}, hs, {"checkpoint-dir": d, "resume?": True})
+        return [r["valid?"] for r in out]
+
+    def stream_checkpoint(lin, st, chk, faults, model, hist, d):
+        sc = st.StreamingChecker(model, checkpoint_dir=d, **_stream_kw(st))
+        for k in range(0, len(hist), 16):
+            sc.feed(hist[k:k + 16])
+        res = sc.finalize()
+        doc = json.loads((d / "stream-checkpoint.json").read_text())["payload"]
+        return res["valid?"], doc["advanced"], doc["epochs"], len(doc["ops"])
+
+    def stream_resume(lin, st, chk, faults, model, hist, d):
+        sc = st.StreamingChecker(model, checkpoint_dir=d, **_stream_kw(st))
+        sc.feed(hist[:len(hist) // 2])
+        del sc  # the process dies here
+        sc = st.StreamingChecker.resume(d, model, **_stream_kw(st, True))
+        at = sc.ops_consumed
+        sc.feed(hist[at:])
+        return at, sc.finalize()["valid?"]
+
+    def stream_check_resume(lin, st, chk, faults, model, hist, d):
+        st.stream_check(model, hist[:len(hist) // 2], checkpoint_dir=d,
+                        **_stream_kw(st))
+        res, sc = st.stream_check(model, hist, checkpoint_dir=d, resume=True,
+                                  **_stream_kw(st))
+        return res["valid?"], sc.ops_consumed, sc.epochs
 
     return {
-        "tpu-deadline": lambda o: lin().check({}, hist, o),
-        "batch-deadline": lambda o: lin("competition").check_batch(
-            {}, [hist], {**o, "deadline": 60.0}),
-        "batch-checkpoint-dir": lambda o: lin("competition").check_batch(
-            {}, [hist], {**o, "checkpoint-dir": "ck"}),
-        "batch-resume": lambda o: lin("tpu").check_batch({}, [hist], {**o, "resume?": True}),
-        "stream-checkpoint-dir": lambda o: ts.StreamingChecker(
-            model, checkpoint_dir="ck", device="cpu"),
-        "stream-resume": lambda o: ts.StreamingChecker.resume("ck", model),
-        "stream-check-resume": lambda o: ts.stream_check(
-            model, hist, checkpoint_dir="ck", resume=True, device="cpu"),
+        "tpu-deadline": tpu_deadline,
+        "batch-deadline": batch_deadline,
+        "batch-checkpoint-dir": batch_checkpoint,
+        "batch-resume": batch_resume,
+        "stream-checkpoint-dir": stream_checkpoint,
+        "stream-resume": stream_resume,
+        "stream-check-resume": stream_check_resume,
     }
+
+
+def _stream_kw(st, resume=False):
+    """The port's checkers run on the CPU when asked; the JAX package's
+    take no device."""
+    if st.__name__.startswith("jepsen_tpu_torch"):
+        return {"device": "cpu"}
+    return {}
 
 
 @pytest.mark.parametrize("case", ["tpu-deadline", "batch-deadline",
                                   "batch-checkpoint-dir", "batch-resume",
                                   "stream-checkpoint-dir", "stream-resume",
                                   "stream-check-resume"])
-def test_refusals_name_a6_and_become_unknown(case):
-    """Each refusal raises NotImplementedError naming queue A6; under
-    check_safe it is an unknown whose error carries that message."""
-    fn = _refusal_cases()[case]
-    opts = tc.resolve_opts({"check-deadline": 60} if case == "tpu-deadline" else {})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        fn(opts)
-    res = tc.check_safe(tc.FnChecker(lambda t, hh, o: fn(o), name=case), {}, [],
-                        {"check-deadline": 60} if case == "tpu-deadline" else {})
-    assert res["valid?"] == tc.UNKNOWN and res["checker"] == case
-    assert "NotImplementedError" in res["error"] and "ROADMAP queue A6" in res["error"]
+def test_refusals_name_a6_and_become_unknown(case, tmp_path):
+    """The options the checkers once refused (queue A6) now run, and give
+    what the JAX package gives on the same history: a 60 s deadline
+    decides, a spent one is the deadline-exceeded unknown; the batch
+    checkpoint is written complete and a resume over a deadline-tripped
+    one finishes the ladder; a stream's checkpoint records its cursor,
+    and a stream resumed mid-history decides as an uninterrupted one."""
+    from jepsen_tpu import faults as jfaults
+    from jepsen_tpu.checker import streaming as jst
+    from jepsen_tpu_torch import faults as tfaults
+    from jepsen_tpu_torch.checker import streaming as tst
+
+    run = _service_cases()[case]
+    hist = mixed_histories(6)[2]
+    tlin_dev = _CpuLinearizable()
+    want = run(jlin, jst, jc, jfaults, jm.CASRegister(None), hist,
+               tmp_path / "jax")
+    got = run(tlin_dev, tst, tc, tfaults, tm.CASRegister(None), hist,
+              tmp_path / "port")
+    assert got == want
+
+
+class _CpuLinearizable:
+    """The port's ``linearizable`` with ``"device": "cpu"``."""
+
+    @staticmethod
+    def linearizable(opts):
+        return tlin.linearizable({**opts, "device": "cpu"})
 
 
 def test_unset_deadline_is_not_refused():

@@ -56,9 +56,10 @@ def spill_hist(seed: int, corrupt_seed=None):
 
 
 def _strip(res: dict) -> dict:
-    """A result without the JAX package's provenance trail and the
-    report's allocator gauge (its cause renders the report, so it is
-    compared through the report)."""
+    """A result without its provenance trail (each package's names its
+    own dedup backend; the trails are compared in
+    tests/test_torch_resume.py) and the report's allocator gauge (its
+    cause renders the report, so it is compared through the report)."""
     res = dict(res)
     res.pop("provenance", None)
     if "undecidability" in res:
@@ -226,9 +227,9 @@ def test_factorization_matches_jax():
             want = _strip(jwgl.chunked_analysis(
                 jm.MonotonicCounter(0), hj, jwgl.pack(jm.MonotonicCounter(0), hj),
                 [64], factor_groups=True))
-            got = twgl.chunked_analysis(
+            got = _strip(twgl.chunked_analysis(
                 tm.MonotonicCounter(0), ht, twgl.pack(tm.MonotonicCounter(0), ht),
-                [64], factor_groups=True, device="cpu")
+                [64], factor_groups=True, device="cpu"))
             assert got == want, (reads, adds)
 
 
@@ -324,13 +325,32 @@ def test_greedy_and_async_analysis_match_jax(seed):
         assert got == want, fn
 
 
-def test_services_refuse_and_device_defaults_to_the_card():
-    """deadline and chunk checkpoints refuse, naming queue A6; every
-    new entry point defaults to the card, which this host lacks."""
+def test_services_refuse_and_device_defaults_to_the_card(tmp_path):
+    """The services run as in the JAX package: a spent deadline gives its
+    deadline-exceeded unknown at barrier 0, a 60 s one and a chunk
+    checkpoint directory decide as the JAX package does, and a resume
+    from that finished checkpoint returns the saved result.  Every entry
+    point defaults to the card, which this host lacks."""
+    from jepsen_tpu import faults as jfaults
+    from jepsen_tpu_torch import faults as tfaults
+
     hist = spill_hist(4100)
-    for kw in (dict(deadline=5.0), dict(checkpoint_dir="x"), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            twgl.analysis(tm.CASRegister(None), hist, device="cpu", **kw)
+    kw = dict(capacity=SPILL_CAPS, dedup_backend="sort")
+    want = jwgl.analysis(jm.CASRegister(None), hist,
+                         deadline=jfaults.Deadline(0.0), **kw)
+    got = twgl.analysis(tm.CASRegister(None), hist, device="cpu",
+                        deadline=tfaults.Deadline(0.0), **kw)
+    assert want["valid?"] == got["valid?"] == "unknown"
+    assert got["cause"] == want["cause"]
+    assert got["cause"].startswith("deadline-exceeded")
+    assert got["provenance"]["path"] == want["provenance"]["path"]
+    want = _strip(jwgl.analysis(jm.CASRegister(None), hist, deadline=60.0,
+                                checkpoint_dir=tmp_path / "jax", **kw))
+    for opts in (dict(deadline=60.0), dict(checkpoint_dir=tmp_path / "port"),
+                 dict(checkpoint_dir=tmp_path / "port", resume=True)):
+        got = _strip(twgl.analysis(tm.CASRegister(None), hist, device="cpu",
+                                   **opts, **kw))
+        assert got == want, opts
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for fn in (twgl.analysis, twgl.greedy_analysis, twgl.analysis_async):

@@ -162,23 +162,32 @@ def test_closure_entry_points_run_where_asked():
     assert not bool(outs[1].g0) and not bool(outs[2].g2)
 
 
-def test_batch_analysis_refuses_unported_options():
-    """What the ladder does not run raises (checkpoints, deadlines and
-    admission naming queue A6); the "sync" engine and exact stages run,
-    and an unknown engine is an error, as in the JAX package."""
+def test_batch_analysis_refuses_unported_options(tmp_path):
+    """What the ladder does not run raises: a mesh that is not the
+    port's ``Mesh`` (the cross-card mesh, queue B), an unknown engine
+    and an unknown confirmation mode.  Checkpoints, deadlines, rung
+    admission, device confirmation and a frontier budget run (an empty
+    list of histories decides at once); the "sync" engine and exact
+    stages run too."""
     model = tm.CASRegister(None)
-    for kw in (dict(mesh=object()), dict(checkpoint_dir="x"),
-               dict(deadline=5.0), dict(admission=object()),
-               dict(confirm_refutations="device")):
-        with pytest.raises(NotImplementedError):
-            tbatch.batch_analysis(model, [], device="cpu", **kw)
-    for kw in (dict(checkpoint_dir="x"), dict(deadline=5.0)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            tbatch.batch_analysis(model, [], device="cpu", **kw)
-    assert tbatch.batch_analysis(model, [], device="cpu", engine="sync",
-                                 exact_escalation=(64,)) == []
+    with pytest.raises(NotImplementedError, match="queue B"):
+        tbatch.batch_analysis(model, [], device="cpu", mesh=object())
+
+    class NoJoiners:
+        def poll(self, stage, lanes):
+            return []
+
+    for kw in (dict(checkpoint_dir=tmp_path), dict(deadline=5.0),
+               dict(admission=NoJoiners()), dict(confirm_refutations="device"),
+               dict(frontier_budget_mb=30.0),
+               dict(checkpoint_dir=tmp_path, resume=True),
+               dict(engine="sync", exact_escalation=(64,))):
+        assert tbatch.batch_analysis(model, [], device="cpu", **kw) == []
     with pytest.raises(ValueError, match="engine"):
         tbatch.batch_analysis(model, [], device="cpu", engine="bogus")
+    with pytest.raises(ValueError, match="confirm_refutations"):
+        tbatch.batch_analysis(model, [], device="cpu",
+                              confirm_refutations="sometimes")
 
 
 def test_spawned_confirm_worker_stays_off_torch():
