@@ -210,12 +210,43 @@ checkout (one nvcc per source, all started together), and then:
      call alone (the reference's own launches stay out); (f) ``check_safe``
      of ``independent.checker(linearizable(competition))`` with a store
      directory on bench keys 0-7: a bundle per key, ``verify_bundle``
-     passing on each, its digest the in-memory bundle's.
+     passing on each, its digest the in-memory bundle's.  (d) also
+     prints each exact lane the bounded sweep then decided: its
+     capacity, whether it was lossy or survived its prefix, and its
+     failing barrier and peak.
+ 12. the telemetry core (``obs``), each sub-phase under its own
+     ``obs.recording`` in a temporary directory, with the launch counts
+     set to 0 before each and read after it, on ``telemetry[...]``
+     lines: (a) phase 5's ladder, all 128 histories: phase 5's
+     verdicts and kernel launches (the recorded run ends with the dedup
+     probe at the first rung's shape, whose keep-mask launches are
+     counted apart), ``telemetry.jsonl`` and ``telemetry.json``
+     written, one ``ladder.stage`` row per rung with ``launches`` >= 1,
+     compile and execute launches summing to it and
+     ``device_bytes_peak`` > 0, ``devices == [0]`` on every
+     ``ladder.launch`` span, and the last ``ladder.unknowns_remaining``
+     phase 5's unknown count; it prints the recorded seconds beside
+     phase 5's, the summary's ladder table, device 0's busy share
+     (``critpath.device_timeline``), the critical path's five longest
+     spans, the event count and the jsonl's size; (b)
+     ``wgl.analysis(fast=True)`` on bench histories 3 and 7 corrupted
+     on the default ladder (128, 1024, 4096): refuted, ``wgl.chunk.*``
+     counters and ``device.buffer_bytes`` gauges at "wgl-chunk" above
+     0; (c) ``check_safe`` of ``independent.checker(linearizable
+     ("tpu"))`` on bench keys 0-7, one ``checker.check`` span and no
+     verdict against phase 5's, then config 3c's ``check_batch`` with
+     the cycle phase on the card, ``elle.scc`` spans with
+     ``backend="device"``; (d) (a)'s stream exported by ``obs.trace``
+     loads as JSON with one ``device 0`` lane holding every
+     ``ladder.launch`` and counter tracks for
+     ``ladder.unknowns_remaining`` and ``device.buffer_bytes``; (e) no
+     recording open after the phase, so every other phase runs the
+     no-op path.
 
 It prints a ``{"kernels": [...]}`` JSON line (launches from the mesh
 ladder of phase 7, from phase 8 as ``single_history_launches``, from
-phase 9's sub-phases as ``checker_launches`` and from phase 11's as
-``services_launches``;
+phase 9's sub-phases as ``checker_launches``, from phase 11's as
+``services_launches`` and from phase 12's as ``telemetry_launches``;
 times at the G = 32 shapes, and as ``single_<rows>_ms`` at phase 8's
 captured shapes) and the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  It exits non-zero,
@@ -2341,11 +2372,26 @@ def run_services(dev, batch, wk, wgl, sharded, mesh_mod, genhist, model,
         # one exact launch per capacity (per lane budget) confirms them
         refuted = [i for i, v in enumerate(want) if v is False]
         st = {}
+        lanes: list = []  # (capacity, exact failed_at, lossy, peak) per lane
+        plain_launch = batch._launch
+
+        def exact_lanes(st_engine, cap, sub, *a, **k):
+            out = plain_launch(st_engine, cap, sub, *a, **k)
+            if st_engine == "exact":
+                (_v, fat, lz, pk), _n, _s = out
+                lanes.extend((cap, int(f), bool(z), int(p))
+                             for f, z, p in zip(fat, lz, pk))
+            return out
+
         wk.reset_counts()
+        batch._launch = exact_lanes
         t0 = time.perf_counter()
-        res = batch.batch_analysis(model, [hists[i] for i in refuted],
-                                   confirm_refutations="device", stats=st,
-                                   **LADDER_KW)
+        try:
+            res = batch.batch_analysis(model, [hists[i] for i in refuted],
+                                       confirm_refutations="device",
+                                       stats=st, **LADDER_KW)
+        finally:
+            batch._launch = plain_launch
         seconds["d"] = time.perf_counter() - t0
         launches["d"] = _launch_counts(wk)
         bad = [[i, r["valid?"]] for i, r in zip(refuted, res)
@@ -2374,15 +2420,24 @@ def run_services(dev, batch, wk, wgl, sharded, mesh_mod, genhist, model,
             elif any(e["event"] == "confirm.resolved"
                      and e.get("mode") == "device-sweep" for e in ev):
                 swept[cap] = swept.get(cap, 0) + 1
+        # each exact lane that did not die losslessly (a refutation the
+        # bounded sweep then decided): its capacity, and whether it was
+        # lossy or survived its prefix
+        swept_lanes = [
+            {"capacity": cap, "exact": "lossy" if lz else "survived",
+             "failed_at": fat, "peak": pk}
+            for cap, fat, lz, pk in lanes if not (fat >= 0 and not lz)]
         if (dc.get("refutations") != len(refuted)
                 or dc.get("launches") != expect or not final
                 or sum(final.values()) + sum(swept.values()) != len(refuted)
+                or len(swept_lanes) != sum(swept.values())
                 or not all(r.get("confirmed?") for r in res)):
             raise AssertionError(
                 f"services[d]: {dc.get('refutations')} refutations, "
                 f"{dc.get('launches')} exact launches against {expect} for "
                 f"capacities {by_cap}; by capacity {final} final on the card, "
-                f"{swept} swept, of {len(refuted)}")
+                f"{swept} swept, of {len(refuted)}; swept exact lanes "
+                f"{swept_lanes}")
         print(f"services[d]: device-confirmed ladder over phase 5's "
               f"{len(refuted)} refuted histories {seconds['d']:.3f} s; exact "
               f"runner {dc['launches']} launches (refutations per capacity "
@@ -2392,6 +2447,9 @@ def run_services(dev, batch, wk, wgl, sharded, mesh_mod, genhist, model,
               f"against phase 5's confirm drain "
               f"{ladder_stats['confirm_drain_s']:.3f} s; verdicts equal "
               f"phase 5's; launches {launches['d']}; {card}", flush=True)
+        print("services[d]: swept exact lanes (capacity, lossy or "
+              "survived, failed-at barrier, peak rows): "
+              + json.dumps(swept_lanes), flush=True)
 
         # (e) context-parallel: one history's frontier over 4 shards
         mesh4 = mesh_mod.make_mesh(MESH_SHARDS)
@@ -2478,6 +2536,221 @@ def run_services(dev, batch, wk, wgl, sharded, mesh_mod, genhist, model,
     for name in ("keep_mask", "fused_frontier_update"):
         if not any(c[name] for c in launches.values()):
             raise AssertionError(f"services: {name} never launched")
+    return launches
+
+
+def run_telemetry(dev, batch, wk, wgl, genhist, model, hists,
+                  ladder_results, ladder_seconds, ladder_counts,
+                  card: str) -> dict:
+    """Phase 12: the telemetry core on the card (see the module
+    docstring); returns the kernels' launch counts of each sub-phase."""
+    import tempfile
+
+    from jepsen_tpu_torch import checker, independent, obs
+    from jepsen_tpu_torch.checker import elle
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.obs import critpath, summary, trace
+    from jepsen_tpu_torch.testing import gentxn
+
+    launches: dict = {}
+    seconds: dict = {}
+    t_phase = time.perf_counter()
+    if obs.active() is not None or obs.observing():
+        raise AssertionError("telemetry: a recording or the metrics mirror "
+                             "was open before phase 12")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
+    root = Path(tmp.name)
+    try:
+        # (a) the bench ladder of phase 5 under a recording
+        wk.reset_counts()
+        st: dict = {}
+        t0 = time.perf_counter()
+        with obs.recording(root / "a") as rec:
+            res = batch.batch_analysis(model, hists, stats=st, **LADDER_KW)
+        seconds["a"] = time.perf_counter() - t0
+        launches["a"] = _launch_counts(wk)
+        events = rec.events
+        rolled = json.loads((root / "a" / "telemetry.json").read_text())
+        jsonl = root / "a" / "telemetry.jsonl"
+        if _verdicts(res) != _verdicts(ladder_results):
+            raise AssertionError(
+                "telemetry[a]: verdicts differ from phase 5's")
+        # a recorded run ends with the dedup probe at its first rung's
+        # shape; its keep-mask launches (one untimed call and ``rounds``
+        # timed ones of the kernel-routed "fused" probe) are not the
+        # ladder's
+        probe = sum(int(e["attrs"]["rounds"]) + 1 for e in events
+                    if e.get("name") == "dedup.round"
+                    and e["attrs"].get("interpret") is False)
+        ladder_only = dict(launches["a"],
+                           keep_mask=launches["a"]["keep_mask"] - probe)
+        for name in ("keep_mask", "fused_frontier_update"):
+            if ladder_only[name] != ladder_counts[name]:
+                raise AssertionError(
+                    f"telemetry[a]: {name} launched {ladder_only[name]} "
+                    f"times (probe {probe} excluded), phase 5 "
+                    f"{ladder_counts[name]}")
+        rows = rolled["ladder"]
+        if [(r["stage"], r["engine"], r["capacity"]) for r in rows] != [
+                (r["stage"], r["engine"], r["capacity"]) for r in st["rungs"]]:
+            raise AssertionError(f"telemetry[a]: stage rows {rows} against "
+                                 f"the rungs {st['rungs']}")
+        for r in rows:
+            n_exec = r["launches"] - r["compile_launches"]
+            if (r["launches"] < 1 or n_exec < 0
+                    or r["compile_launches"] + n_exec != r["launches"]
+                    or not r.get("device_bytes_peak", 0) > 0):
+                raise AssertionError(f"telemetry[a]: stage row {r}")
+        launch_spans = [e for e in events if e.get("type") == "span"
+                        and e["name"] == "ladder.launch"]
+        if not launch_spans or any(e["attrs"].get("devices") != [0]
+                                   for e in launch_spans):
+            raise AssertionError("telemetry[a]: ladder.launch spans without "
+                                 "devices == [0]")
+        unknowns = sum(1 for r in ladder_results if r["valid?"] == "unknown")
+        final = [e["value"] for e in events if e.get("type") == "gauge"
+                 and e["name"] == "ladder.unknowns_remaining"]
+        if not final or final[-1] != unknowns:
+            raise AssertionError(f"telemetry[a]: final unknowns_remaining "
+                                 f"{final[-1:]} against phase 5's {unknowns}")
+        tl = critpath.device_timeline(events)
+        cp = rolled["critpath"]["spans"][:5]
+        print(f"telemetry[a]: the bench ladder recorded {seconds['a']:.3f} s "
+              f"against phase 5's {ladder_seconds:.3f} s (unrecorded; the "
+              f"recorded run adds the dedup probe); verdicts and kernel "
+              f"launches phase 5's ({probe} probe keep-mask launches "
+              f"apart); {len(events)} events, telemetry.jsonl "
+              f"{jsonl.stat().st_size} bytes; device 0 busy "
+              f"{tl['devices'][0]['busy_s']} of {tl['window_s']} s "
+              f"({tl['devices'][0]['busy_frac']}) over "
+              f"{tl['devices'][0]['launches']} launches; launches "
+              f"{launches['a']}; {card}", flush=True)
+        text = summary.format_summary(rolled).splitlines()
+        at = text.index("ladder stages:")
+        for line in text[at:at + 2 + len(rows) + 1]:
+            print("telemetry[a]: " + line, flush=True)
+        print("telemetry[a]: critical path, the five longest: " + json.dumps(
+            [[r["span"], r["cp_s"]] for r in cp]), flush=True)
+
+        # (b) the single-history path: bench 3 and 7 corrupted
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        with obs.recording(root / "b") as rec:
+            res_b = [wgl.analysis(model, hists[i],
+                                  capacity=SINGLE_DEFAULT_LADDER, fast=True,
+                                  dedup_backend="fused", device=dev)
+                     for i in DECIDED_BENCH]
+        seconds["b"] = time.perf_counter() - t0
+        launches["b"] = _launch_counts(wk)
+        chunk = {}
+        for e in rec.events:
+            if (e.get("type") == "counter"
+                    and e["name"].startswith("wgl.chunk.")):
+                chunk[e["name"]] = chunk.get(e["name"], 0) + e["n"]
+        gauges = [e["value"] for e in rec.events if e.get("type") == "gauge"
+                  and e["name"] == "device.buffer_bytes"
+                  and e["attrs"].get("at") == "wgl-chunk"]
+        if (any(r["valid?"] is not False for r in res_b) or not chunk
+                or not gauges or min(gauges) <= 0):
+            raise AssertionError(f"telemetry[b]: verdicts "
+                                 f"{[r['valid?'] for r in res_b]}, counters "
+                                 f"{chunk}, wgl-chunk gauges {gauges}")
+        print(f"telemetry[b]: wgl.analysis(fast=True) on bench "
+              f"{list(DECIDED_BENCH)} corrupted, refuted, {seconds['b']:.3f} "
+              f"s; counters {json.dumps(chunk)}; device.buffer_bytes at "
+              f"wgl-chunk {len(gauges)} samples, {min(gauges)}-"
+              f"{max(gauges)} bytes; launches {launches['b']}; {card}",
+              flush=True)
+
+        # (c) the checkers: independent "tpu" on bench keys 0-7, and
+        # config 3c's check_batch with the cycle phase on the card
+        keys = list(range(EVIDENCE_KEYS))
+        keyed = _keyed(independent, hists, keys)
+        chk = independent.checker(lin.linearizable(
+            {"model": "cas-register", "algorithm": "tpu", "device": dev,
+             "kernel-opts": {"capacity": CAPS}}))
+        txns = [gentxn.append_history(PER_KEY_TXNS, n_keys=PER_KEY_KEYS,
+                                      n_procs=PER_KEY_PROCS,
+                                      seed=PER_KEY_SEED + i)
+                for i in range(PER_KEY_GRAPHS)]
+        wk.reset_counts()
+        prev = elle.CYCLE_BACKEND
+        t0 = time.perf_counter()
+        try:
+            with obs.recording(root / "c") as rec:
+                res_c = checker.check_safe(chk, {}, keyed, {})
+                elle.CYCLE_BACKEND = "device"
+                outs = elle.ListAppendChecker(device=dev).check_batch(
+                    {}, txns, {})
+        finally:
+            elle.CYCLE_BACKEND = prev
+        seconds["c"] = time.perf_counter() - t0
+        launches["c"] = _launch_counts(wk)
+        checks = [e for e in rec.events if e.get("type") == "span"
+                  and e["name"] == "checker.check"]
+        scc_dev = [e for e in rec.events if e.get("type") == "span"
+                   and e["name"] == "elle.scc"
+                   and e["attrs"].get("backend") == "device"]
+        per_key = [res_c["results"][k]["valid?"] for k in keys]
+        differ = [k for k, v in zip(keys, per_key)
+                  if "unknown" not in (v, ladder_results[k]["valid?"])
+                  and v != ladder_results[k]["valid?"]]
+        if (_errors(res_c) or len(checks) != 1 or differ
+                or not scc_dev or len(outs) != PER_KEY_GRAPHS):
+            raise AssertionError(
+                f"telemetry[c]: {len(checks)} checker.check spans, per-key "
+                f"{per_key} (differ from phase 5 at {differ}), "
+                f"{len(scc_dev)} device elle.scc spans, errors "
+                f"{_errors(res_c)[:3]}")
+        elle_rows = json.loads(
+            (root / "c" / "telemetry.json").read_text())["elle"]
+        print(f"telemetry[c]: check_safe(independent(linearizable tpu)) on "
+              f"bench keys 0-{keys[-1]} ({checks[0]['dur']} s, one "
+              f"checker.check span, verdicts {per_key}, none against phase "
+              f"5's) and config 3c's "
+              f"check_batch on the card ({len(scc_dev)} device elle.scc "
+              f"span, {scc_dev[0]['dur']} s); elle table "
+              f"{json.dumps(elle_rows)}; {seconds['c']:.3f} s; launches "
+              f"{launches['c']}; {card}", flush=True)
+
+        # (d) (a)'s stream as a Chrome/Perfetto trace
+        t0 = time.perf_counter()
+        raw, skipped = trace.read_jsonl_events(jsonl)
+        doc = json.loads(json.dumps(trace.to_trace_events(
+            raw, skipped_lines=skipped)))
+        tev = doc["traceEvents"]
+        lanes = {e["tid"]: e["args"]["name"] for e in tev
+                 if e.get("ph") == "M" and e.get("name") == "thread_name"}
+        dev_lanes = [t for t, n in lanes.items() if n.startswith("device ")]
+        on_dev0 = sum(1 for e in tev if e.get("ph") == "X"
+                      and e["name"] == "ladder.launch"
+                      and lanes.get(e["tid"]) == "device 0")
+        tracks = sorted({e["name"] for e in tev if e.get("ph") == "C"})
+        seconds["d"] = time.perf_counter() - t0
+        if (skipped or [lanes[t] for t in dev_lanes] != ["device 0"]
+                or on_dev0 != len(launch_spans)
+                or not {"ladder.unknowns_remaining",
+                        "device.buffer_bytes"} <= set(tracks)):
+            raise AssertionError(f"telemetry[d]: lanes {lanes}, "
+                                 f"{on_dev0} launches on device 0 of "
+                                 f"{len(launch_spans)}, tracks {tracks}, "
+                                 f"skipped {skipped}")
+        print(f"telemetry[d]: trace export of (a): {len(tev)} trace events, "
+              f"one device lane ('device 0') with all {on_dev0} "
+              f"ladder.launch spans, counter tracks {tracks}; "
+              f"{seconds['d']:.3f} s", flush=True)
+    finally:
+        tmp.cleanup()
+
+    # (e) every recording closed: the phases before ran, and what runs
+    # after runs, the no-op path only
+    if obs.active() is not None or obs.observing():
+        raise AssertionError("telemetry[e]: a recording is still open")
+    print(f"telemetry[e]: no recording open after the phase (obs.active() "
+          f"None, obs.observing() False)", flush=True)
+    print(f"telemetry: phase 12 {time.perf_counter() - t_phase:.3f} s "
+          f"(a {seconds['a']:.3f}, b {seconds['b']:.3f}, c "
+          f"{seconds['c']:.3f}, d {seconds['d']:.3f}); {card}", flush=True)
     return launches
 
 
@@ -2656,6 +2929,9 @@ def main(argv=None) -> int:
     services_counts = run_services(
         dev, batch, wk, wgl, sharded, mesh_mod, genhist, model, hists,
         results, seconds, stats, card)
+    telemetry_counts = run_telemetry(
+        dev, batch, wk, wgl, genhist, model, hists, results, seconds, counts,
+        card)
     if args.profile:
         profile_ladder(batch, model, hists)
     batch.shutdown_confirm_pool()
@@ -2680,6 +2956,8 @@ def main(argv=None) -> int:
          "checker_launches": {sub: c[name] for sub, c in checker_counts.items()},
          "services_launches": {sub: c[name]
                                for sub, c in services_counts.items()},
+         "telemetry_launches": {sub: c[name]
+                                for sub, c in telemetry_counts.items()},
          **({f"single_{c}_ms": single_measured[c][name]["ms"]
              for c in SPILL_CAPS} if name in single_measured[SPILL_CAPS[0]]
             else {}),

@@ -22,6 +22,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 from jepsen_tpu_torch import faults
 from jepsen_tpu_torch import history as h
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.utils import bounded_pmap
 
 UNKNOWN = "unknown"
@@ -103,21 +104,25 @@ def check_safe(chk: Checker, test, history, opts=None, name: str | None = None) 
 
     The failure names which checker raised (``"checker"`` key; ``name``
     lets Compose pass the map key the caller knows the checker by), so
-    composed results stay attributable.  Opts are normalized through
-    ``resolve_opts``, so a ``"check-deadline"`` budget reaches the
-    checker as a live ``"deadline"``."""
+    composed results stay attributable, and each check emits a
+    ``checker.check`` span with the checker's name and verdict.  Opts
+    are normalized through ``resolve_opts``, so a ``"check-deadline"``
+    budget reaches the checker as a live ``"deadline"``."""
     name = name or checker_name(chk)
     opts = resolve_opts(opts)
-    try:
-        result = chk.check(test, history, opts)
-        if result is None:
-            result = {"valid?": True}
-    except Exception:  # noqa: BLE001 - contract: never propagate
-        result = {
-            "valid?": UNKNOWN,
-            "checker": name,
-            "error": traceback.format_exc(),
-        }
+    with obs.span("checker.check", checker=name) as sp:
+        try:
+            result = chk.check(test, history, opts)
+            if result is None:
+                result = {"valid?": True}
+        except Exception:  # noqa: BLE001 - contract: never propagate
+            obs.counter("checker.errors", checker=name)
+            result = {
+                "valid?": UNKNOWN,
+                "checker": name,
+                "error": traceback.format_exc(),
+            }
+        sp.set(valid=result.get("valid?"))
     return result
 
 

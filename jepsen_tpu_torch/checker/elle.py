@@ -35,6 +35,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 
 from jepsen_tpu_torch import history as h
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch import store
 from jepsen_tpu_torch.checker import Checker
 from jepsen_tpu_torch.checker import scc
@@ -369,12 +370,15 @@ def check_graph(
     if not g.n:
         return _merge_flags(g, dict(cl._EMPTY_FLAGS), dict(cl._EMPTY_HINTS), requested)
     if _device_classify(g.n, backend):
-        flags, hints = cl.classify_graph(g.ww, g.wr, g.rw, g.extra, device=device)
+        with obs.span("elle.scc", nodes=g.n, backend="device"):
+            flags, hints = cl.classify_graph(g.ww, g.wr, g.rw, g.extra,
+                                             device=device)
     else:
         # the sparse edge view skips argwhere over the dense matrices
-        flags, hints = scc.classify_graph_scc(
-            g.ww, g.wr, g.rw, g.extra, edges=g.edge_arrays()
-        )
+        with obs.span("elle.scc", nodes=g.n, backend="host"):
+            flags, hints = scc.classify_graph_scc(
+                g.ww, g.wr, g.rw, g.extra, edges=g.edge_arrays()
+            )
     return _merge_flags(g, flags, hints, requested)
 
 
@@ -386,24 +390,30 @@ def check_graphs(
 ) -> list[dict]:
     """Classify MANY graphs (the per-key scale-out path): one SCC pass
     per graph on the host backend; on ``backend="device"``, the
-    bucketed batched closures (``ops.closure.classify_graphs``)."""
+    bucketed batched closures (``ops.closure.classify_graphs``).  Each
+    backend's pass is one ``elle.scc`` span (the device one is the
+    port's: the JAX package times only the host pass here)."""
     results: list = [None] * len(graphs)
     dev_idx = [i for i, g in enumerate(graphs) if _device_classify(g.n, backend)]
     if dev_idx:
         # routed per graph: an oversized graph (> SCC_THRESHOLD) goes
         # host without cancelling the device opt-in for the others
-        dev_out = cl.classify_graphs(
-            [(graphs[i].ww, graphs[i].wr, graphs[i].rw, graphs[i].extra)
-             for i in dev_idx],
-            device=device,
-        )
+        with obs.span("elle.scc", graphs=len(dev_idx), backend="device"):
+            dev_out = cl.classify_graphs(
+                [(graphs[i].ww, graphs[i].wr, graphs[i].rw, graphs[i].extra)
+                 for i in dev_idx],
+                device=device,
+            )
         for i, r in zip(dev_idx, dev_out):
             results[i] = r
-    for i, g in enumerate(graphs):
-        if results[i] is None:
-            results[i] = scc.classify_graph_scc(
-                g.ww, g.wr, g.rw, g.extra, edges=g.edge_arrays()
-            )
+    if len(dev_idx) < len(graphs):
+        with obs.span("elle.scc", graphs=len(graphs) - len(dev_idx),
+                      backend="host"):
+            for i, g in enumerate(graphs):
+                if results[i] is None:
+                    results[i] = scc.classify_graph_scc(
+                        g.ww, g.wr, g.rw, g.extra, edges=g.edge_arrays()
+                    )
     return [
         _merge_flags(g, flags, hints, requested)
         for g, (flags, hints) in zip(graphs, results)
@@ -672,9 +682,12 @@ class CycleChecker(_ElleChecker):
         return res
 
     def check_batch(self, test, histories, opts):
-        """One classification loop over many histories."""
+        """One classification loop over many histories, one span."""
         dev = self._device(opts)
-        outs = [self._check_one(hh, dev) for hh in histories]
+        with obs.span(
+            "elle.infer_batch", histories=len(histories), workload="cycle",
+        ):
+            outs = [self._check_one(hh, dev) for hh in histories]
         for hh, res in zip(histories, outs):
             self._emit_evidence(test, hh, res, opts,
                                 workload="cycle", source="check_batch")

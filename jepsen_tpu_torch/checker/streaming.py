@@ -67,8 +67,10 @@ import numpy as np
 
 from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import models as m
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch._platform import resolve_device
 from jepsen_tpu_torch.checker import UNKNOWN
+from jepsen_tpu_torch.obs import metrics as _metrics
 from jepsen_tpu_torch.obs import provenance as _prov
 from jepsen_tpu_torch.ops import wgl
 from jepsen_tpu_torch.ops.hashing import resolve_dedup_backend
@@ -253,6 +255,7 @@ class StreamingChecker:
             return self.status()
         if ops:
             self._history.extend(ops)
+            obs.counter("stream.ops", len(ops), stream=self.stream_id)
             self._advance(final=False)
             self._save_ck()
         return self.status()
@@ -307,6 +310,7 @@ class StreamingChecker:
             )
         except Exception as e:  # noqa: BLE001 — evidence never loses verdicts
             logger.warning("stream evidence bundle build failed: %s", e)
+            obs.counter("provenance.emit_error", error=type(e).__name__)
             return None
 
     # ------------------------------------------------------------------
@@ -345,6 +349,13 @@ class StreamingChecker:
             },
         )
         self._result = res
+        obs.span_event(
+            "stream.verdict", time.perf_counter() - self._t0,
+            verdict=_prov.verdict_str(res.get("valid?")),
+            ops=len(self._history), epochs=self._epochs,
+            settled=self._advanced, final=self._finalized,
+            stream=self.stream_id,
+        )
 
     def _refute_or_unknown(self, packed: dict, gb: int) -> None:
         op_pos = int(packed["bar_opid"][gb])
@@ -371,6 +382,8 @@ class StreamingChecker:
             "seconds": time.perf_counter() - self._t0,
             "epoch_seconds": time.perf_counter() - self._t_epoch,
         }
+        _metrics.observe("serve.stream_detect_latency_seconds",
+                         self._detect["epoch_seconds"])
         self._terminal(res, barrier=gb)
 
     def _advance(self, final: bool) -> None:
@@ -408,7 +421,17 @@ class StreamingChecker:
                 else:
                     break
 
+        def _epoch_span(scanned: int, rows: int) -> None:
+            obs.span_event(
+                "stream.epoch", time.perf_counter() - self._t_epoch,
+                ops=len(history), pending=pending, settled=S,
+                scanned=scanned, frontier_rows=rows,
+                epoch=self._epochs, stream=self.stream_id,
+            )
+
         if B == 0 or S <= self._advanced:
+            _epoch_span(0, 0 if self._frontier is None
+                        else int(self._frontier[0].shape[0]))
             return
         if packed_raw["G"] > self.max_groups:
             self._terminal({
@@ -450,6 +473,7 @@ class StreamingChecker:
             if violated:
                 # Settlement invariant violated (should be unreachable):
                 # rescan from barrier 0 — latency, never a wrong verdict.
+                obs.counter("stream.rescan", stream=self.stream_id)
                 self._rescans += 1
                 self._pv("stream.rescan", barrier=self._advanced)
                 logger.warning(
@@ -477,18 +501,23 @@ class StreamingChecker:
         self._frontier = r["frontier"]
         self._gkeys = new_keys
         if r["error"] is not None:
+            _epoch_span(S - self._advanced,
+                        int(self._frontier[0].shape[0]))
             self._terminal({
                 "valid?": UNKNOWN,
                 "cause": f"device launch failed: {r['error']}",
             }, barrier=self._advanced)
             return
         if r["failed_barrier"] is not None:
+            _epoch_span(r["failed_barrier"] - self._advanced, 0)
             self._refute_or_unknown(packed, r["failed_barrier"])
             return
         if not self._lossy:
             # verified counts loss-free barriers, as in chunked_analysis
             self._verified = S
+        scanned = S - self._advanced
         self._advanced = S
+        _epoch_span(scanned, int(self._frontier[0].shape[0]))
 
     # ------------------------------------------------------------------
     # Checkpoint and resume
@@ -531,6 +560,7 @@ class StreamingChecker:
         except Exception:  # noqa: BLE001 — a recovery aid, not a verdict input
             logger.warning("couldn't write stream checkpoint to %s",
                            self.checkpoint_dir, exc_info=True)
+            obs.counter("fault.checkpoint.error")
             return None
 
     @classmethod
@@ -581,6 +611,11 @@ class StreamingChecker:
         sc._launches = saved["launches"]
         sc._epochs = saved["epochs"]
         sc._result = saved["result"]
+        obs.span_event(
+            "fault.checkpoint.load", 0.0, barrier=sc._advanced,
+            rows=int(st.shape[0]), stream=True,
+            complete=sc._result is not None,
+        )
         sc._pv("stream.resumed", barrier=sc._advanced,
                ops=len(sc._history))
         return sc
@@ -615,6 +650,7 @@ def stream_check(
                 logger.warning(
                     "unreadable stream checkpoint in %s (%s); "
                     "streaming fresh", checkpoint_dir, e)
+                obs.counter("fault.checkpoint.mismatch", reason="unreadable")
     if sc is None:
         sc = StreamingChecker(model, checkpoint_dir=checkpoint_dir, **kw)
     at = sc.ops_consumed

@@ -40,6 +40,7 @@ from collections.abc import Mapping, Sequence
 import numpy as np
 
 from jepsen_tpu_torch import history as h
+from jepsen_tpu_torch import obs
 
 _I64 = np.int64
 _I64_MAX = np.iinfo(np.int64).max
@@ -592,134 +593,136 @@ def list_append_graph_columns(history, additional_graphs=(), pairs=None):
     the loop reference)."""
     from jepsen_tpu_torch.checker import txn_graph as tg
 
-    nc = NodeColumns(history, pairs)
-    n = nc.n
-    nodes = LazyNodes(nc)
-    mc = MopColumns(nc)
-    ok = nc.ok
+    with obs.span("elle.nodes", workload="list-append"):
+        nc = NodeColumns(history, pairs)
+        n = nc.n
+        nodes = LazyNodes(nc)
+        mc = MopColumns(nc)
+        ok = nc.ok
 
-    # external reads of OK nodes, with their element lists flattened
-    er = mc.ext_read_rows()
-    er = er[ok[mc.node[er]]]
-    r_node = mc.node[er]
-    r_key = mc.key[er]
-    r_list: list = []
-    flat: list = []
-    for row in er:
-        v = nc.values[int(mc.node[row])][int(mc.pos[row])][2]
-        lst = list(v or [])
-        r_list.append(lst)
-        flat.extend(lst)
-    r_len = np.asarray([len(x) for x in r_list], _I64)
-    r_off = np.concatenate(([0], np.cumsum(r_len)))[:-1] if len(r_list) \
-        else np.zeros(0, _I64)
+        # external reads of OK nodes, with their element lists flattened
+        er = mc.ext_read_rows()
+        er = er[ok[mc.node[er]]]
+        r_node = mc.node[er]
+        r_key = mc.key[er]
+        r_list: list = []
+        flat: list = []
+        for row in er:
+            v = nc.values[int(mc.node[row])][int(mc.pos[row])][2]
+            lst = list(v or [])
+            r_list.append(lst)
+            flat.extend(lst)
+        r_len = np.asarray([len(x) for x in r_list], _I64)
+        r_off = np.concatenate(([0], np.cumsum(r_len)))[:-1] if len(r_list) \
+            else np.zeros(0, _I64)
 
-    pool = _ValuePool(mc.n_keys)
-    e_val, _ = pool.add(_int_array(flat))
-    w_val, w_none = pool.add(*_vals_with_none(mc.w_raw))
-    # failed client writes ((key, value) -> op; "append" mops only)
-    f_ops, f_key, f_raw = _failed_write_rows(nc, mc, fname="append")
-    f_val, f_none = pool.add(*_vals_with_none(f_raw))
-    pool.finalize()
-    f_key_arr = np.asarray(f_key, _I64)
-    f_packed = pool.pack(f_key_arr, f_val) if len(f_val) else \
-        np.zeros(0, _I64)
-    failed = _PackedMap(f_packed, keep="last")
+        pool = _ValuePool(mc.n_keys)
+        e_val, _ = pool.add(_int_array(flat))
+        w_val, w_none = pool.add(*_vals_with_none(mc.w_raw))
+        # failed client writes ((key, value) -> op; "append" mops only)
+        f_ops, f_key, f_raw = _failed_write_rows(nc, mc, fname="append")
+        f_val, f_none = pool.add(*_vals_with_none(f_raw))
+        pool.finalize()
+        f_key_arr = np.asarray(f_key, _I64)
+        f_packed = pool.pack(f_key_arr, f_val) if len(f_val) else \
+            np.zeros(0, _I64)
+        failed = _PackedMap(f_packed, keep="last")
 
     anomalies: dict[str, list] = {}
 
     def add_anom(name, item):
         anomalies.setdefault(name, []).append(item)
 
-    # -- internal (ok nodes that re-read a touched key; host check)
-    cand = mc.repeat_read_nodes(ok)
-    for i in cand:
-        for a in tg._internal_anomalies_append(nodes[int(i)]):
-            add_anom("internal", a)
+    with obs.span("elle.anomalies", workload="list-append"):
+        # -- internal (ok nodes that re-read a touched key; host check)
+        cand = mc.repeat_read_nodes(ok)
+        for i in cand:
+            for a in tg._internal_anomalies_append(nodes[int(i)]):
+                add_anom("internal", a)
 
-    # -- appender map + duplicate appends (all nodes, scan order)
-    ap = np.flatnonzero(mc.isappend)
-    ap_in_w = np.searchsorted(mc.w_rows, ap)  # appends ⊆ writes
-    ap_packed = pool.pack(mc.key[ap], w_val[ap_in_w])
-    appender = _PackedMap(ap_packed, keep="first")
-    ap_node = mc.node[ap]
+        # -- appender map + duplicate appends (all nodes, scan order)
+        ap = np.flatnonzero(mc.isappend)
+        ap_in_w = np.searchsorted(mc.w_rows, ap)  # appends ⊆ writes
+        ap_packed = pool.pack(mc.key[ap], w_val[ap_in_w])
+        appender = _PackedMap(ap_packed, keep="first")
+        ap_node = mc.node[ap]
 
-    def _appender_node(rows):
-        """appender row -> node id (-1 when absent)."""
-        if len(ap_node) == 0:
-            return np.full(len(rows), -1, _I64)
-        return np.where(rows >= 0, ap_node[np.maximum(rows, 0)], _I64(-1))
+        def _appender_node(rows):
+            """appender row -> node id (-1 when absent)."""
+            if len(ap_node) == 0:
+                return np.full(len(rows), -1, _I64)
+            return np.where(rows >= 0, ap_node[np.maximum(rows, 0)], _I64(-1))
 
-    for d in appender.dup_rows:
-        row = int(ap[d])
-        first = int(ap_node[appender.lookup(ap_packed[d : d + 1])[0]])
-        mop = nc.values[int(mc.node[row])][int(mc.pos[row])]
-        add_anom(
-            "duplicate-elements",
-            {"key": mop[1], "element": mop[2],
-             "ops": [nodes[first].op, nodes[int(mc.node[row])].op]},
+        for d in appender.dup_rows:
+            row = int(ap[d])
+            first = int(ap_node[appender.lookup(ap_packed[d : d + 1])[0]])
+            mop = nc.values[int(mc.node[row])][int(mc.pos[row])]
+            add_anom(
+                "duplicate-elements",
+                {"key": mop[1], "element": mop[2],
+                 "ops": [nodes[first].op, nodes[int(mc.node[row])].op]},
+            )
+
+        # -- intermediate writes (non-final in-txn writes; last-wins map)
+        iw_from, iw_to = mc.consecutive_writes()
+        iw_packed = pool.pack(
+            mc.key[iw_from], w_val[np.searchsorted(mc.w_rows, iw_from)]
         )
+        inter = _PackedMap(iw_packed, keep="last")
+        iw_node = mc.node[iw_from]
+        iw_next = w_val[np.searchsorted(mc.w_rows, iw_to)]
 
-    # -- intermediate writes (non-final in-txn writes; last-wins map)
-    iw_from, iw_to = mc.consecutive_writes()
-    iw_packed = pool.pack(
-        mc.key[iw_from], w_val[np.searchsorted(mc.w_rows, iw_from)]
-    )
-    inter = _PackedMap(iw_packed, keep="last")
-    iw_node = mc.node[iw_from]
-    iw_next = w_val[np.searchsorted(mc.w_rows, iw_to)]
+        # -- G1a / G1b over read contents (flat element occurrences)
+        E = len(e_val)
+        if E:
+            e_read = np.repeat(np.arange(len(r_list), dtype=_I64), r_len)
+            e_pos = np.arange(E, dtype=_I64) - r_off[e_read]
+            e_packed = pool.pack(r_key[e_read], e_val)
+            uk, k_rank, r_rank = _read_key_ranks(r_key)
 
-    # -- G1a / G1b over read contents (flat element occurrences)
-    E = len(e_val)
-    if E:
-        e_read = np.repeat(np.arange(len(r_list), dtype=_I64), r_len)
-        e_pos = np.arange(E, dtype=_I64) - r_off[e_read]
-        e_packed = pool.pack(r_key[e_read], e_val)
-        uk, k_rank, r_rank = _read_key_ranks(r_key)
-
-        g1a = failed.lookup(e_packed)
-        g1a_idx = np.flatnonzero(g1a >= 0)
-        if len(g1a_idx):
-            order = np.lexsort(
-                (e_pos[g1a_idx], e_read[g1a_idx],
-                 r_rank[e_read[g1a_idx]])
-            )
-            for x in g1a_idx[order]:
-                ri = int(e_read[x])
-                fr = int(g1a[x])
-                add_anom(
-                    "G1a",
-                    {"op": nodes[int(r_node[ri])].op,
-                     "key": mc.key_objs[int(r_key[ri])],
-                     "element": r_list[ri][int(e_pos[x])],
-                     "writer": nc.hist[int(f_ops[fr])]},
+            g1a = failed.lookup(e_packed)
+            g1a_idx = np.flatnonzero(g1a >= 0)
+            if len(g1a_idx):
+                order = np.lexsort(
+                    (e_pos[g1a_idx], e_read[g1a_idx],
+                     r_rank[e_read[g1a_idx]])
                 )
+                for x in g1a_idx[order]:
+                    ri = int(e_read[x])
+                    fr = int(g1a[x])
+                    add_anom(
+                        "G1a",
+                        {"op": nodes[int(r_node[ri])].op,
+                         "key": mc.key_objs[int(r_key[ri])],
+                         "element": r_list[ri][int(e_pos[x])],
+                         "writer": nc.hist[int(f_ops[fr])]},
+                    )
 
-        g1b = inter.lookup(e_packed)
-        hit = np.flatnonzero(g1b >= 0)
-        if len(hit):
-            has_next = e_pos[hit] + 1 < r_len[e_read[hit]]
-            nxt = np.where(
-                has_next, e_val[np.minimum(hit + 1, E - 1)], _I64(0)
-            )
-            want = iw_next[g1b[hit]]
-            flag = hit[~(has_next & (nxt == want))]
-            order = np.lexsort(
-                (e_pos[flag], e_read[flag], r_rank[e_read[flag]])
-            )
-            for x in flag[order]:
-                ri = int(e_read[x])
-                add_anom(
-                    "G1b",
-                    {"op": nodes[int(r_node[ri])].op,
-                     "key": mc.key_objs[int(r_key[ri])],
-                     "element": r_list[ri][int(e_pos[x])],
-                     "writer": nodes[int(iw_node[g1b[x]])].op},
+            g1b = inter.lookup(e_packed)
+            hit = np.flatnonzero(g1b >= 0)
+            if len(hit):
+                has_next = e_pos[hit] + 1 < r_len[e_read[hit]]
+                nxt = np.where(
+                    has_next, e_val[np.minimum(hit + 1, E - 1)], _I64(0)
                 )
-    else:
-        e_read = np.zeros(0, _I64)
-        e_pos = np.zeros(0, _I64)
-        uk, k_rank, r_rank = _read_key_ranks(r_key)
+                want = iw_next[g1b[hit]]
+                flag = hit[~(has_next & (nxt == want))]
+                order = np.lexsort(
+                    (e_pos[flag], e_read[flag], r_rank[e_read[flag]])
+                )
+                for x in flag[order]:
+                    ri = int(e_read[x])
+                    add_anom(
+                        "G1b",
+                        {"op": nodes[int(r_node[ri])].op,
+                         "key": mc.key_objs[int(r_key[ri])],
+                         "element": r_list[ri][int(e_pos[x])],
+                         "writer": nodes[int(iw_node[g1b[x]])].op},
+                    )
+        else:
+            e_read = np.zeros(0, _I64)
+            e_pos = np.zeros(0, _I64)
+            uk, k_rank, r_rank = _read_key_ranks(r_key)
 
     ww = np.zeros((n, n), dtype=bool)
     wr = np.zeros((n, n), dtype=bool)
@@ -728,108 +731,109 @@ def list_append_graph_columns(history, additional_graphs=(), pairs=None):
     edge_out: dict[str, np.ndarray] = {}
     NK = len(uk)
 
-    # -- version order per key: the longest read wins; prefix check
-    if NK:
-        korder = np.lexsort((np.arange(len(r_key)), -r_len, r_rank))
-        kfirst = np.ones(len(korder), bool)
-        kfirst[1:] = r_rank[korder][1:] != r_rank[korder][:-1]
-        longest_ri = np.empty(NK, _I64)
-        longest_ri[r_rank[korder[kfirst]]] = korder[kfirst]
-        key_off = r_off[longest_ri]
-        key_len = r_len[longest_ri]
-        kcode_by_rank = np.empty(NK, _I64)
-        kcode_by_rank[k_rank] = uk
+    with obs.span("elle.edges", workload="list-append"):
+        # -- version order per key: the longest read wins; prefix check
+        if NK:
+            korder = np.lexsort((np.arange(len(r_key)), -r_len, r_rank))
+            kfirst = np.ones(len(korder), bool)
+            kfirst[1:] = r_rank[korder][1:] != r_rank[korder][:-1]
+            longest_ri = np.empty(NK, _I64)
+            longest_ri[r_rank[korder[kfirst]]] = korder[kfirst]
+            key_off = r_off[longest_ri]
+            key_len = r_len[longest_ri]
+            kcode_by_rank = np.empty(NK, _I64)
+            kcode_by_rank[k_rank] = uk
 
-        if len(e_val):
-            lpos = key_off[r_rank[e_read]] + e_pos
-            mismatch = e_val != e_val[lpos]
-            bad_reads = np.unique(e_read[mismatch])
-        else:
-            bad_reads = np.zeros(0, _I64)
-        bad_key = np.zeros(NK, bool)
-        bad_key[r_rank[bad_reads]] = True
-        if len(bad_reads):
-            order = np.argsort(r_rank[bad_reads], kind="stable")
-            for ri in bad_reads[order]:
-                ri = int(ri)
-                add_anom(
-                    "incompatible-order",
-                    {"key": mc.key_objs[int(r_key[ri])],
-                     "read": r_list[ri],
-                     "longest": r_list[int(longest_ri[r_rank[ri]])],
-                     "op": nodes[int(r_node[ri])].op},
-                )
-        good = np.flatnonzero(~bad_key)  # ascending key rank
+            if len(e_val):
+                lpos = key_off[r_rank[e_read]] + e_pos
+                mismatch = e_val != e_val[lpos]
+                bad_reads = np.unique(e_read[mismatch])
+            else:
+                bad_reads = np.zeros(0, _I64)
+            bad_key = np.zeros(NK, bool)
+            bad_key[r_rank[bad_reads]] = True
+            if len(bad_reads):
+                order = np.argsort(r_rank[bad_reads], kind="stable")
+                for ri in bad_reads[order]:
+                    ri = int(ri)
+                    add_anom(
+                        "incompatible-order",
+                        {"key": mc.key_objs[int(r_key[ri])],
+                         "read": r_list[ri],
+                         "longest": r_list[int(longest_ri[r_rank[ri]])],
+                         "op": nodes[int(r_node[ri])].op},
+                    )
+            good = np.flatnonzero(~bad_key)  # ascending key rank
 
-        # -- ww: consecutive observed appends in each version order
-        pair_cnt = np.maximum(key_len[good] - 1, 0)
-        pa = _ranges(key_off[good], pair_cnt)
-        occ_rank = np.repeat(good, pair_cnt)
-        na = _appender_node(
-            appender.lookup(pool.pack(kcode_by_rank[occ_rank], e_val[pa]))
-        )
-        nb = _appender_node(
-            appender.lookup(
-                pool.pack(kcode_by_rank[occ_rank], e_val[pa + 1])
+            # -- ww: consecutive observed appends in each version order
+            pair_cnt = np.maximum(key_len[good] - 1, 0)
+            pa = _ranges(key_off[good], pair_cnt)
+            occ_rank = np.repeat(good, pair_cnt)
+            na = _appender_node(
+                appender.lookup(pool.pack(kcode_by_rank[occ_rank], e_val[pa]))
             )
-        )
-        ok_pair = (na >= 0) & (nb >= 0) & (na != nb)
-        na, nb = na[ok_pair], nb[ok_pair]
-        occ_rank_ww = occ_rank[ok_pair]
-        occ_pos = (pa - key_off[occ_rank])[ok_pair]
-        ww[na, nb] = True
-        ww_eid = na * n + nb
-        win = _keep_last(ww_eid)
-        expl.add_table(
-            "ww", ww_eid[win], (occ_rank_ww[win], occ_pos[win]),
-            _render_ww_append(nodes, mc.key_objs, kcode_by_rank,
-                              r_list, longest_ri),
-        )
-        edge_out["ww"] = _edge_pairs(ww_eid, n)
+            nb = _appender_node(
+                appender.lookup(
+                    pool.pack(kcode_by_rank[occ_rank], e_val[pa + 1])
+                )
+            )
+            ok_pair = (na >= 0) & (nb >= 0) & (na != nb)
+            na, nb = na[ok_pair], nb[ok_pair]
+            occ_rank_ww = occ_rank[ok_pair]
+            occ_pos = (pa - key_off[occ_rank])[ok_pair]
+            ww[na, nb] = True
+            ww_eid = na * n + nb
+            win = _keep_last(ww_eid)
+            expl.add_table(
+                "ww", ww_eid[win], (occ_rank_ww[win], occ_pos[win]),
+                _render_ww_append(nodes, mc.key_objs, kcode_by_rank,
+                                  r_list, longest_ri),
+            )
+            edge_out["ww"] = _edge_pairs(ww_eid, n)
 
-        # -- wr / rw per read of a good key
-        rr = np.flatnonzero(~bad_key[r_rank])  # reads of good keys
-        rr = rr[np.argsort(r_rank[rr], kind="stable")]  # key-major
-        nz = rr[r_len[rr] > 0]
-        last = e_val[r_off[nz] + r_len[nz] - 1]
-        wn = _appender_node(
-            appender.lookup(pool.pack(r_key[nz], last))
-        )
-        okw = (wn >= 0) & (wn != r_node[nz])
-        wr_i, wr_j = wn[okw], r_node[nz][okw]
-        wr[wr_i, wr_j] = True
-        wr_eid = wr_i * n + wr_j
-        win = _keep_last(wr_eid)
-        expl.add_table(
-            "wr", wr_eid[win], (nz[okw][win],),
-            _render_wr_append(nodes, mc.key_objs, r_key, r_list),
-        )
-        edge_out["wr"] = _edge_pairs(wr_eid, n)
+            # -- wr / rw per read of a good key
+            rr = np.flatnonzero(~bad_key[r_rank])  # reads of good keys
+            rr = rr[np.argsort(r_rank[rr], kind="stable")]  # key-major
+            nz = rr[r_len[rr] > 0]
+            last = e_val[r_off[nz] + r_len[nz] - 1]
+            wn = _appender_node(
+                appender.lookup(pool.pack(r_key[nz], last))
+            )
+            okw = (wn >= 0) & (wn != r_node[nz])
+            wr_i, wr_j = wn[okw], r_node[nz][okw]
+            wr[wr_i, wr_j] = True
+            wr_eid = wr_i * n + wr_j
+            win = _keep_last(wr_eid)
+            expl.add_table(
+                "wr", wr_eid[win], (nz[okw][win],),
+                _render_wr_append(nodes, mc.key_objs, r_key, r_list),
+            )
+            edge_out["wr"] = _edge_pairs(wr_eid, n)
 
-        beyond = rr[r_len[rr] < key_len[r_rank[rr]]]
-        nv = e_val[key_off[r_rank[beyond]] + r_len[beyond]]
-        nx = _appender_node(
-            appender.lookup(pool.pack(r_key[beyond], nv))
-        )
-        okr = (nx >= 0) & (nx != r_node[beyond])
-        rw_i, rw_j = r_node[beyond][okr], nx[okr]
-        rw[rw_i, rw_j] = True
-        rw_eid = rw_i * n + rw_j
-        win = _keep_last(rw_eid)
-        expl.add_table(
-            "rw", rw_eid[win], (beyond[okr][win],),
-            _render_rw_append(nodes, mc.key_objs, r_key, r_list,
-                              longest_ri, r_rank),
-        )
-        edge_out["rw"] = _edge_pairs(rw_eid, n)
-    else:
-        for et in ("ww", "wr", "rw"):
-            edge_out[et] = np.zeros((0, 2), _I64)
+            beyond = rr[r_len[rr] < key_len[r_rank[rr]]]
+            nv = e_val[key_off[r_rank[beyond]] + r_len[beyond]]
+            nx = _appender_node(
+                appender.lookup(pool.pack(r_key[beyond], nv))
+            )
+            okr = (nx >= 0) & (nx != r_node[beyond])
+            rw_i, rw_j = r_node[beyond][okr], nx[okr]
+            rw[rw_i, rw_j] = True
+            rw_eid = rw_i * n + rw_j
+            win = _keep_last(rw_eid)
+            expl.add_table(
+                "rw", rw_eid[win], (beyond[okr][win],),
+                _render_rw_append(nodes, mc.key_objs, r_key, r_list,
+                                  longest_ri, r_rank),
+            )
+            edge_out["rw"] = _edge_pairs(rw_eid, n)
+        else:
+            for et in ("ww", "wr", "rw"):
+                edge_out[et] = np.zeros((0, 2), _I64)
 
-    extra = _extra_columns(nc, additional_graphs, n)
-    edge_out["extra"] = (
-        np.argwhere(extra) if extra.any() else np.zeros((0, 2), _I64)
-    )
+        extra = _extra_columns(nc, additional_graphs, n)
+        edge_out["extra"] = (
+            np.argwhere(extra) if extra.any() else np.zeros((0, 2), _I64)
+        )
 
     return tg.TxnGraph(
         nodes=nodes, ww=ww, wr=wr, rw=rw, extra=extra,
@@ -915,30 +919,31 @@ def rw_register_graph_columns(history, additional_graphs=(),
     contract as the list-append engine)."""
     from jepsen_tpu_torch.checker import txn_graph as tg
 
-    nc = NodeColumns(history, pairs)
-    n = nc.n
-    nodes = LazyNodes(nc)
-    mc = MopColumns(nc)
-    ok = nc.ok
+    with obs.span("elle.nodes", workload="rw-register"):
+        nc = NodeColumns(history, pairs)
+        n = nc.n
+        nodes = LazyNodes(nc)
+        mc = MopColumns(nc)
+        ok = nc.ok
 
-    # external reads (ok nodes): scalar values
-    er = mc.ext_read_rows()
-    er = er[ok[mc.node[er]]]
-    r_node = mc.node[er]
-    r_key = mc.key[er]
-    r_raw = [nc.values[int(mc.node[x])][int(mc.pos[x])][2] for x in er]
+        # external reads (ok nodes): scalar values
+        er = mc.ext_read_rows()
+        er = er[ok[mc.node[er]]]
+        r_node = mc.node[er]
+        r_key = mc.key[er]
+        r_raw = [nc.values[int(mc.node[x])][int(mc.pos[x])][2] for x in er]
 
-    pool = _ValuePool(mc.n_keys)
-    r_val, r_none = pool.add(*_vals_with_none(r_raw))
-    w_val, _w_none = pool.add(*_vals_with_none(mc.w_raw))
-    f_ops, f_key, f_raw = _failed_write_rows(nc, mc, fname="w")
-    f_val, _f_none = pool.add(*_vals_with_none(f_raw))
-    pool.finalize()
-    failed = _PackedMap(
-        pool.pack(np.asarray(f_key, _I64), f_val) if len(f_val)
-        else np.zeros(0, _I64),
-        keep="last",
-    )
+        pool = _ValuePool(mc.n_keys)
+        r_val, r_none = pool.add(*_vals_with_none(r_raw))
+        w_val, _w_none = pool.add(*_vals_with_none(mc.w_raw))
+        f_ops, f_key, f_raw = _failed_write_rows(nc, mc, fname="w")
+        f_val, _f_none = pool.add(*_vals_with_none(f_raw))
+        pool.finalize()
+        failed = _PackedMap(
+            pool.pack(np.asarray(f_key, _I64), f_val) if len(f_val)
+            else np.zeros(0, _I64),
+            keep="last",
+        )
 
     anomalies: dict[str, list] = {}
 
@@ -953,197 +958,200 @@ def rw_register_graph_columns(history, additional_graphs=(),
         et: np.zeros((0, 2), _I64) for et in ("ww", "wr", "rw")
     }
 
-    # -- internal
-    for i in mc.repeat_read_nodes(ok):
-        for a in tg._internal_anomalies_wr(nodes[int(i)]):
-            add_anom("internal", a)
+    with obs.span("elle.anomalies", workload="rw-register"):
+        # -- internal
+        for i in mc.repeat_read_nodes(ok):
+            for a in tg._internal_anomalies_wr(nodes[int(i)]):
+                add_anom("internal", a)
 
-    # -- writer map (final external writes) + duplicate-writes.
-    # ext_writes insertion order = (node, FIRST write pos of key);
-    # its value = the LAST write.
-    w = mc.w_rows
-    ew_first = np.zeros(0, _I64)
-    ew_last = np.zeros(0, _I64)
-    if len(w):
-        order = np.lexsort((mc.pos[w], mc.key[w], mc.node[w]))
-        ws = w[order]
-        first = np.ones(len(ws), bool)
-        first[1:] = ~(
-            (mc.node[ws][1:] == mc.node[ws][:-1])
-            & (mc.key[ws][1:] == mc.key[ws][:-1])
-        )
-        last = np.ones(len(ws), bool)
-        last[:-1] = first[1:]
-        ef, el = ws[first], ws[last]
-        ins = np.argsort(ef, kind="stable")  # (node, first-pos) order
-        ew_first, ew_last = ef[ins], el[ins]
-    ew_key = mc.key[ew_first] if len(ew_first) else np.zeros(0, _I64)
-    ew_node = mc.node[ew_first] if len(ew_first) else np.zeros(0, _I64)
-    ew_val = (
-        w_val[np.searchsorted(w, ew_last)] if len(ew_last)
-        else np.zeros(0, _I64)
-    )
-    ew_val_obj = [mc.w_raw[int(np.searchsorted(w, x))] for x in ew_last]
-    ew_packed = pool.pack(ew_key, ew_val)
-    writer = _PackedMap(ew_packed, keep="first")
-    for d in writer.dup_rows:
-        d = int(d)
-        firstrow = int(writer.lookup(ew_packed[d : d + 1])[0])
-        add_anom(
-            "duplicate-writes",
-            {"key": mc.key_objs[int(ew_key[d])], "value": ew_val_obj[d],
-             "ops": [nodes[int(ew_node[firstrow])].op,
-                     nodes[int(ew_node[d])].op]},
-        )
-
-    # -- intermediate writes (non-final in-txn writes; last wins)
-    iw_from, _iw_to = mc.consecutive_writes()
-    inter = _PackedMap(
-        pool.pack(mc.key[iw_from], w_val[np.searchsorted(w, iw_from)])
-        if len(iw_from) else np.zeros(0, _I64),
-        keep="last",
-    )
-    iw_node = mc.node[iw_from] if len(iw_from) else np.zeros(0, _I64)
-
-    # -- per-read G1a / G1b / wr (global read order; None skipped).
-    # r_packed covers ALL reads (None rides the sentinel code) so the
-    # version-order pass can look nil reads up too.
-    live = np.flatnonzero(~r_none)
-    r_packed = (
-        pool.pack(r_key, r_val) if len(r_val) else np.zeros(0, _I64)
-    )
-    g1a = failed.lookup(r_packed[live]) if len(live) else np.zeros(0, _I64)
-    g1b = inter.lookup(r_packed[live]) if len(live) else np.zeros(0, _I64)
-    wrow = writer.lookup(r_packed[live]) if len(live) else np.zeros(0, _I64)
-    # anomalies are rare — loop only over the hits (read order; a
-    # G1a read emits no G1b and, below, no wr edge)
-    for x in np.flatnonzero((g1a >= 0) | (g1b >= 0)):
-        ri = int(live[x])
-        if g1a[x] >= 0:
-            add_anom(
-                "G1a",
-                {"op": nodes[int(r_node[ri])].op,
-                 "key": mc.key_objs[int(r_key[ri])],
-                 "value": r_raw[ri],
-                 "writer": nc.hist[int(f_ops[int(g1a[x])])]},
+        # -- writer map (final external writes) + duplicate-writes.
+        # ext_writes insertion order = (node, FIRST write pos of key);
+        # its value = the LAST write.
+        w = mc.w_rows
+        ew_first = np.zeros(0, _I64)
+        ew_last = np.zeros(0, _I64)
+        if len(w):
+            order = np.lexsort((mc.pos[w], mc.key[w], mc.node[w]))
+            ws = w[order]
+            first = np.ones(len(ws), bool)
+            first[1:] = ~(
+                (mc.node[ws][1:] == mc.node[ws][:-1])
+                & (mc.key[ws][1:] == mc.key[ws][:-1])
             )
+            last = np.ones(len(ws), bool)
+            last[:-1] = first[1:]
+            ef, el = ws[first], ws[last]
+            ins = np.argsort(ef, kind="stable")  # (node, first-pos) order
+            ew_first, ew_last = ef[ins], el[ins]
+        ew_key = mc.key[ew_first] if len(ew_first) else np.zeros(0, _I64)
+        ew_node = mc.node[ew_first] if len(ew_first) else np.zeros(0, _I64)
+        ew_val = (
+            w_val[np.searchsorted(w, ew_last)] if len(ew_last)
+            else np.zeros(0, _I64)
+        )
+        ew_val_obj = [mc.w_raw[int(np.searchsorted(w, x))] for x in ew_last]
+        ew_packed = pool.pack(ew_key, ew_val)
+        writer = _PackedMap(ew_packed, keep="first")
+        for d in writer.dup_rows:
+            d = int(d)
+            firstrow = int(writer.lookup(ew_packed[d : d + 1])[0])
+            add_anom(
+                "duplicate-writes",
+                {"key": mc.key_objs[int(ew_key[d])], "value": ew_val_obj[d],
+                 "ops": [nodes[int(ew_node[firstrow])].op,
+                         nodes[int(ew_node[d])].op]},
+            )
+
+        # -- intermediate writes (non-final in-txn writes; last wins)
+        iw_from, _iw_to = mc.consecutive_writes()
+        inter = _PackedMap(
+            pool.pack(mc.key[iw_from], w_val[np.searchsorted(w, iw_from)])
+            if len(iw_from) else np.zeros(0, _I64),
+            keep="last",
+        )
+        iw_node = mc.node[iw_from] if len(iw_from) else np.zeros(0, _I64)
+
+        # -- per-read G1a / G1b / wr (global read order; None skipped).
+        # r_packed covers ALL reads (None rides the sentinel code) so the
+        # version-order pass can look nil reads up too.
+        live = np.flatnonzero(~r_none)
+        r_packed = (
+            pool.pack(r_key, r_val) if len(r_val) else np.zeros(0, _I64)
+        )
+        g1a = failed.lookup(r_packed[live]) if len(live) else np.zeros(0, _I64)
+        g1b = inter.lookup(r_packed[live]) if len(live) else np.zeros(0, _I64)
+        wrow = (writer.lookup(r_packed[live]) if len(live)
+                else np.zeros(0, _I64))
+        # anomalies are rare — loop only over the hits (read order; a
+        # G1a read emits no G1b and, below, no wr edge)
+        for x in np.flatnonzero((g1a >= 0) | (g1b >= 0)):
+            ri = int(live[x])
+            if g1a[x] >= 0:
+                add_anom(
+                    "G1a",
+                    {"op": nodes[int(r_node[ri])].op,
+                     "key": mc.key_objs[int(r_key[ri])],
+                     "value": r_raw[ri],
+                     "writer": nc.hist[int(f_ops[int(g1a[x])])]},
+                )
+            else:
+                add_anom(
+                    "G1b",
+                    {"op": nodes[int(r_node[ri])].op,
+                     "key": mc.key_objs[int(r_key[ri])],
+                     "value": r_raw[ri],
+                     "writer": nodes[int(iw_node[int(g1b[x])])].op},
+                )
+        # wr edges, fully vectorized: a live read whose value has a
+        # final writer other than itself — unless G1a aborted it
+        if len(live) and len(ew_node):
+            wn_nodes = ew_node[np.maximum(wrow, 0)]
+            ok_wr = (g1a < 0) & (wrow >= 0) & (wn_nodes != r_node[live])
+            sel = np.flatnonzero(ok_wr)  # ascending = global read order
+            wi = wn_nodes[sel]
+            wj = r_node[live[sel]]
+            wri = live[sel]
         else:
-            add_anom(
-                "G1b",
-                {"op": nodes[int(r_node[ri])].op,
-                 "key": mc.key_objs[int(r_key[ri])],
-                 "value": r_raw[ri],
-                 "writer": nodes[int(iw_node[int(g1b[x])])].op},
-            )
-    # wr edges, fully vectorized: a live read whose value has a
-    # final writer other than itself — unless G1a aborted it
-    if len(live) and len(ew_node):
-        wn_nodes = ew_node[np.maximum(wrow, 0)]
-        ok_wr = (g1a < 0) & (wrow >= 0) & (wn_nodes != r_node[live])
-        sel = np.flatnonzero(ok_wr)  # ascending = global read order
-        wi = wn_nodes[sel]
-        wj = r_node[live[sel]]
-        wri = live[sel]
-    else:
-        wi = wj = wri = np.zeros(0, _I64)
-    wr[wi, wj] = True
-    wr_eid = wi * n + wj
-    win = _keep_last(wr_eid)
-    expl.add_table(
-        "wr", wr_eid[win], (wri[win],),
-        _render_wr_register(nodes, mc.key_objs, r_key, r_raw),
-    )
-    edge_out["wr"] = _edge_pairs(wr_eid, n)
-
-    if (sequential_keys or linearizable_keys) and len(ew_first):
-        if (ew_val == pool.none_code).any():
-            # A FINAL None write makes the reference's version order
-            # contain None twice ([None] prefix + the written nil),
-            # with dict-overwrite semantics on pos_of — a corner the
-            # loop reference handles exactly; route it there.
-            raise NotColumnizable(
-                "nil final write under per-key version orders"
-            )
-        sort_key = (
-            nc.complete[ew_node] if linearizable_keys
-            else nc.invoke[ew_node]
-        )
-        kept = np.sort(writer.rows)  # writer-map insertion order
-        kk = ew_key[kept]
-        uk, ufirst = np.unique(kk, return_index=True)
-        krank_of = np.empty(len(uk), _I64)
-        krank_of[np.argsort(ufirst, kind="stable")] = np.arange(
-            len(uk), dtype=_I64
-        )
-        kranks = krank_of[np.searchsorted(uk, kk)]
-        # key-major, sort_key-minor, insertion-stable
-        order = np.lexsort(
-            (np.arange(len(kept)), sort_key[kept], kranks)
-        )
-        srows = kept[order]
-        sranks = kranks[order]
-        NKw = len(uk)
-        cnt = np.bincount(sranks, minlength=NKw).astype(_I64)
-        off = np.concatenate(([0], np.cumsum(cnt)))[:-1]
-
-        # ww: consecutive writes in each key's version order
-        pair_cnt = np.maximum(cnt - 1, 0)
-        pa = _ranges(off, pair_cnt)
-        na = ew_node[srows[pa]]
-        nb = ew_node[srows[pa + 1]]
-        okp = na != nb
-        na, nb, pa_ok = na[okp], nb[okp], pa[okp]
-        ww[na, nb] = True
-        ww_eid = na * n + nb
-        win = _keep_last(ww_eid)
+            wi = wj = wri = np.zeros(0, _I64)
+        wr[wi, wj] = True
+        wr_eid = wi * n + wj
+        win = _keep_last(wr_eid)
         expl.add_table(
-            "ww", ww_eid[win], (pa_ok[win],),
-            _render_ww_register(nodes, mc.key_objs, ew_key, ew_val_obj,
-                                srows),
+            "wr", wr_eid[win], (wri[win],),
+            _render_wr_register(nodes, mc.key_objs, r_key, r_raw),
         )
-        edge_out["ww"] = _edge_pairs(ww_eid, n)
+        edge_out["wr"] = _edge_pairs(wr_eid, n)
 
-        # rw: each read (None included) against its key's order
-        in_keys = np.searchsorted(uk, r_key)
-        in_keys_ok = (in_keys < len(uk))
-        if len(r_key):
-            in_keys_ok &= uk[np.minimum(in_keys, len(uk) - 1)] == r_key
-        rd = np.flatnonzero(in_keys_ok)
-        rd_rank = krank_of[in_keys[rd]] if len(rd) else np.zeros(0, _I64)
-        # position in [None] + values: None -> 0; else writer row pos
-        srow_pos = np.empty(len(ew_first), _I64)
-        srow_pos[srows] = np.arange(len(srows), dtype=_I64)
-        wrow_rd = writer.lookup(r_packed[rd]) if len(rd) else \
-            np.zeros(0, _I64)
-        p = np.full(len(rd), -1, _I64)
-        p[r_none[rd]] = 0
-        hitw = np.flatnonzero(wrow_rd >= 0)
-        if len(hitw):
-            p[hitw] = srow_pos[wrow_rd[hitw]] - off[rd_rank[hitw]] + 1
-        valid = (p >= 0) & (p < cnt[rd_rank])
-        rd, p, rd_rank = rd[valid], p[valid], rd_rank[valid]
-        # iterate keys in by_key order, reads in global order per key
-        order = np.lexsort((rd, rd_rank))
-        rd, p, rd_rank = rd[order], p[order], rd_rank[order]
-        nxrow = srows[off[rd_rank] + p]
-        nx = ew_node[nxrow]
-        okr = nx != r_node[rd]
-        rw_i = r_node[rd[okr]]
-        rw_j = nx[okr]
-        rw[rw_i, rw_j] = True
-        rw_eid = rw_i * n + rw_j
-        win = _keep_last(rw_eid)
-        expl.add_table(
-            "rw", rw_eid[win], (rd[okr][win], nxrow[okr][win]),
-            _render_rw_register(nodes, mc.key_objs, r_key, r_raw,
-                                ew_val_obj),
+    with obs.span("elle.edges", workload="rw-register"):
+        if (sequential_keys or linearizable_keys) and len(ew_first):
+            if (ew_val == pool.none_code).any():
+                # A FINAL None write makes the reference's version order
+                # contain None twice ([None] prefix + the written nil),
+                # with dict-overwrite semantics on pos_of — a corner the
+                # loop reference handles exactly; route it there.
+                raise NotColumnizable(
+                    "nil final write under per-key version orders"
+                )
+            sort_key = (
+                nc.complete[ew_node] if linearizable_keys
+                else nc.invoke[ew_node]
+            )
+            kept = np.sort(writer.rows)  # writer-map insertion order
+            kk = ew_key[kept]
+            uk, ufirst = np.unique(kk, return_index=True)
+            krank_of = np.empty(len(uk), _I64)
+            krank_of[np.argsort(ufirst, kind="stable")] = np.arange(
+                len(uk), dtype=_I64
+            )
+            kranks = krank_of[np.searchsorted(uk, kk)]
+            # key-major, sort_key-minor, insertion-stable
+            order = np.lexsort(
+                (np.arange(len(kept)), sort_key[kept], kranks)
+            )
+            srows = kept[order]
+            sranks = kranks[order]
+            NKw = len(uk)
+            cnt = np.bincount(sranks, minlength=NKw).astype(_I64)
+            off = np.concatenate(([0], np.cumsum(cnt)))[:-1]
+
+            # ww: consecutive writes in each key's version order
+            pair_cnt = np.maximum(cnt - 1, 0)
+            pa = _ranges(off, pair_cnt)
+            na = ew_node[srows[pa]]
+            nb = ew_node[srows[pa + 1]]
+            okp = na != nb
+            na, nb, pa_ok = na[okp], nb[okp], pa[okp]
+            ww[na, nb] = True
+            ww_eid = na * n + nb
+            win = _keep_last(ww_eid)
+            expl.add_table(
+                "ww", ww_eid[win], (pa_ok[win],),
+                _render_ww_register(nodes, mc.key_objs, ew_key, ew_val_obj,
+                                    srows),
+            )
+            edge_out["ww"] = _edge_pairs(ww_eid, n)
+
+            # rw: each read (None included) against its key's order
+            in_keys = np.searchsorted(uk, r_key)
+            in_keys_ok = (in_keys < len(uk))
+            if len(r_key):
+                in_keys_ok &= uk[np.minimum(in_keys, len(uk) - 1)] == r_key
+            rd = np.flatnonzero(in_keys_ok)
+            rd_rank = krank_of[in_keys[rd]] if len(rd) else np.zeros(0, _I64)
+            # position in [None] + values: None -> 0; else writer row pos
+            srow_pos = np.empty(len(ew_first), _I64)
+            srow_pos[srows] = np.arange(len(srows), dtype=_I64)
+            wrow_rd = writer.lookup(r_packed[rd]) if len(rd) else \
+                np.zeros(0, _I64)
+            p = np.full(len(rd), -1, _I64)
+            p[r_none[rd]] = 0
+            hitw = np.flatnonzero(wrow_rd >= 0)
+            if len(hitw):
+                p[hitw] = srow_pos[wrow_rd[hitw]] - off[rd_rank[hitw]] + 1
+            valid = (p >= 0) & (p < cnt[rd_rank])
+            rd, p, rd_rank = rd[valid], p[valid], rd_rank[valid]
+            # iterate keys in by_key order, reads in global order per key
+            order = np.lexsort((rd, rd_rank))
+            rd, p, rd_rank = rd[order], p[order], rd_rank[order]
+            nxrow = srows[off[rd_rank] + p]
+            nx = ew_node[nxrow]
+            okr = nx != r_node[rd]
+            rw_i = r_node[rd[okr]]
+            rw_j = nx[okr]
+            rw[rw_i, rw_j] = True
+            rw_eid = rw_i * n + rw_j
+            win = _keep_last(rw_eid)
+            expl.add_table(
+                "rw", rw_eid[win], (rd[okr][win], nxrow[okr][win]),
+                _render_rw_register(nodes, mc.key_objs, r_key, r_raw,
+                                    ew_val_obj),
+            )
+            edge_out["rw"] = _edge_pairs(rw_eid, n)
+
+        extra = _extra_columns(nc, additional_graphs, n)
+        edge_out["extra"] = (
+            np.argwhere(extra) if extra.any() else np.zeros((0, 2), _I64)
         )
-        edge_out["rw"] = _edge_pairs(rw_eid, n)
-
-    extra = _extra_columns(nc, additional_graphs, n)
-    edge_out["extra"] = (
-        np.argwhere(extra) if extra.any() else np.zeros((0, 2), _I64)
-    )
 
     return tg.TxnGraph(
         nodes=nodes, ww=ww, wr=wr, rw=rw, extra=extra,

@@ -32,6 +32,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 
 from jepsen_tpu_torch import history as h
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch import txn as t
 
 #: engine selection: per-call arg > env > the vectorized default.  The
@@ -311,7 +312,8 @@ def list_append_graph(
                 history, additional_graphs, pairs=pairs
             )
         except tc.NotColumnizable:
-            pass  # the loop reference below gives the same graph
+            # the loop reference below gives the same graph
+            obs.counter("elle.columns_fallback", workload="list-append")
     return list_append_graph_loops(history, additional_graphs, pairs=pairs)
 
 
@@ -477,7 +479,8 @@ def rw_register_graph(
                 linearizable_keys=linearizable_keys, pairs=pairs,
             )
         except tc.NotColumnizable:
-            pass  # the loop reference below gives the same graph
+            # the loop reference below gives the same graph
+            obs.counter("elle.columns_fallback", workload="rw-register")
     return rw_register_graph_loops(
         history, additional_graphs, sequential_keys=sequential_keys,
         linearizable_keys=linearizable_keys, pairs=pairs,
@@ -610,10 +613,14 @@ def list_append_graphs(
     sparse edge arrays so the batch classification sweep never scans a
     dense matrix."""
     engine = resolve_engine(engine)
-    return [
-        list_append_graph(hh, additional_graphs, engine=engine)
-        for hh in histories
-    ]
+    with obs.span(
+        "elle.infer_batch", histories=len(histories),
+        workload="list-append", engine=engine,
+    ):
+        return [
+            list_append_graph(hh, additional_graphs, engine=engine)
+            for hh in histories
+        ]
 
 
 def rw_register_graphs(
@@ -626,10 +633,14 @@ def rw_register_graphs(
     """Batched form of ``rw_register_graph`` (see
     ``list_append_graphs``)."""
     engine = resolve_engine(engine)
-    return [
-        rw_register_graph(
-            hh, additional_graphs, sequential_keys=sequential_keys,
-            linearizable_keys=linearizable_keys, engine=engine,
-        )
-        for hh in histories
-    ]
+    with obs.span(
+        "elle.infer_batch", histories=len(histories),
+        workload="rw-register", engine=engine,
+    ):
+        return [
+            rw_register_graph(
+                hh, additional_graphs, sequential_keys=sequential_keys,
+                linearizable_keys=linearizable_keys, engine=engine,
+            )
+            for hh in histories
+        ]

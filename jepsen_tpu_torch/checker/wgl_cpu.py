@@ -39,6 +39,7 @@ from typing import Any, Sequence
 
 from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import models as m
+from jepsen_tpu_torch import obs
 
 #: fs that never change model state; crashed ops with these fs are dropped.
 PURE_FS = {
@@ -147,7 +148,11 @@ def dfs_analysis(
     reached, or ``{"valid?": "unknown", "cause": ...}`` past the node
     budget.
     """
-    return _dfs_analysis(model, history, max_visited, {})
+    with obs.span("wgl_cpu.dfs") as sp:
+        stats: dict = {}
+        out = _dfs_analysis(model, history, max_visited, stats)
+        sp.set(valid=out.get("valid?"), **stats)
+        return out
 
 
 def _dfs_analysis(model, history, max_visited, stats: dict) -> dict:
@@ -256,48 +261,52 @@ def greedy_walk(model: m.Model, history: Sequence[dict],
     cap = max_steps if max_steps is not None else 4 * len(history) + 64
     state, fok, fcr = model, frozenset(), empty
     b = steps = 0
-    while b < n_barriers:
-        _pos, i, open_ok, open_crashed = barriers[b]
-        if i in fok:
-            fok = fok - {i}
-            b += 1
-            continue
-        steps += 1
-        if steps > cap:
-            return None
-        # Greedy: fire the returning op itself first.
-        s2 = state.step(eff_ops[i])
-        if not m.is_inconsistent(s2):
-            state, fok = s2, fok | {i}
-            if record is not None:
-                record.append(eff_ops[i])
-            continue
-        # Enabling move: the first consistent open ok op, else the first
-        # available crashed group (same legality and order the DFS
-        # branches over — we just never come back).
-        for j in open_ok:
-            if j in fok or j == i:
+    with obs.span("wgl_cpu.greedy_walk") as sp:
+        while b < n_barriers:
+            _pos, i, open_ok, open_crashed = barriers[b]
+            if i in fok:
+                fok = fok - {i}
+                b += 1
                 continue
-            s2 = state.step(eff_ops[j])
+            steps += 1
+            if steps > cap:
+                sp.set(completed=False, steps=steps)
+                return None
+            # Greedy: fire the returning op itself first.
+            s2 = state.step(eff_ops[i])
             if not m.is_inconsistent(s2):
-                state, fok = s2, fok | {j}
+                state, fok = s2, fok | {i}
                 if record is not None:
-                    record.append(eff_ops[j])
-                break
-        else:
-            for g, open_count in open_crashed:
-                k = gidx[g]
-                if fcr[k] >= open_count:
+                    record.append(eff_ops[i])
+                continue
+            # Enabling move: the first consistent open ok op, else the first
+            # available crashed group (same legality and order the DFS
+            # branches over — we just never come back).
+            for j in open_ok:
+                if j in fok or j == i:
                     continue
-                s2 = state.step(group_op_list[k])
+                s2 = state.step(eff_ops[j])
                 if not m.is_inconsistent(s2):
-                    state = s2
-                    fcr = fcr[:k] + (fcr[k] + 1,) + fcr[k + 1:]
+                    state, fok = s2, fok | {j}
                     if record is not None:
-                        record.append(group_op_list[k])
+                        record.append(eff_ops[j])
                     break
             else:
-                return None  # stuck: every greedy move is inconsistent
+                for g, open_count in open_crashed:
+                    k = gidx[g]
+                    if fcr[k] >= open_count:
+                        continue
+                    s2 = state.step(group_op_list[k])
+                    if not m.is_inconsistent(s2):
+                        state = s2
+                        fcr = fcr[:k] + (fcr[k] + 1,) + fcr[k + 1:]
+                        if record is not None:
+                            record.append(group_op_list[k])
+                        break
+                else:
+                    sp.set(completed=False, steps=steps)
+                    return None  # stuck: every greedy move is inconsistent
+        sp.set(completed=True, steps=steps)
     return True
 
 
@@ -376,8 +385,11 @@ def sweep_analysis(
 
     ``stats``: an optional dict the sweep fills with its work counters
     (barriers, groups, configs_explored, peak_configs)."""
-    st: dict = {} if stats is None else stats
-    return _sweep_analysis(model, history, max_configs, stop_at_index, st)
+    with obs.span("wgl_cpu.sweep") as sp:
+        st: dict = {} if stats is None else stats
+        out = _sweep_analysis(model, history, max_configs, stop_at_index, st)
+        sp.set(valid=out.get("valid?"), **st)
+        return out
 
 
 def _sweep_analysis(model, history, max_configs, stop_at_index, stats: dict) -> dict:

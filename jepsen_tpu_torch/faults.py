@@ -60,6 +60,9 @@ import time
 import traceback
 from typing import Callable, Mapping
 
+from jepsen_tpu_torch import obs
+from jepsen_tpu_torch.obs import metrics as _metrics
+
 #: fault-injection hook: ``INJECT(ctx, attempt)`` runs before each launch
 #: attempt and may raise (classified exactly like a real launch error).
 #: The durable-write seams announce themselves here too
@@ -285,6 +288,9 @@ def try_oom_spill(ctx: Mapping | None = None) -> bool:
             freed = bool(fn(ctx)) or freed
         except Exception:  # noqa: BLE001 — see docstring
             continue
+    if freed:
+        # mirrors as jepsen_tpu_fault_oom_spill_total
+        obs.counter("fault.oom.spill", what=str(ctx.get("what") or "launch"))
     return freed
 
 
@@ -441,12 +447,23 @@ def call_with_retry(
             kind = error_kind(e)
             if kind is None:
                 raise
+            # live fault series, labeled by kind and launch site (a retry
+            # needs none: the counter below mirrors by name)
             if kind == "oom":
+                _metrics.inc("fault.launch_failures", kind="oom", what=what)
                 raise LaunchFailure("oom", e, what) from e
             if attempt >= retries:
+                _metrics.inc("fault.launch_failures", kind="transient",
+                             what=what)
                 raise LaunchFailure("transient", e, what) from e
             delay = min(max_s, base_s * (2 ** attempt))
             attempt += 1
+            obs.counter(
+                "fault.launch.retry", what=what, attempt=attempt,
+                delay_s=round(delay, 3), error=describe(e),
+                **{k: ctx[k] for k in ("stage", "engine", "capacity", "lanes")
+                   if k in ctx},
+            )
             sleep(delay)
 
 

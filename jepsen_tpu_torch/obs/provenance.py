@@ -15,10 +15,11 @@ audits one (envelope CRC, digest, history fingerprint, and the witness
 re-stepped through the model or the claimed cycle re-chained).  Digests
 and envelopes are byte-for-byte the JAX package's for the same payload.
 
-``replay_bundle`` (re-running a bundle's history pinned to its engine,
-for ``tools/evidence.py``) waits for the command line (ROADMAP queue
-A10), as do the ``provenance.*`` counters.  This module imports no
-torch.
+Each bundle written counts ``provenance.bundle`` (by source and
+verdict), and a failed build or write ``provenance.emit_error``
+(``obs``).  ``replay_bundle`` (re-running a bundle's history pinned to
+its engine, for ``tools/evidence.py``) waits for the command line
+(ROADMAP queue A10).  This module imports no torch.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import socket
 import uuid
 from pathlib import Path
 from typing import Mapping, Sequence
+
+from jepsen_tpu_torch import obs
 
 logger = logging.getLogger(__name__)
 
@@ -293,8 +296,10 @@ def build_bundle(*, history, result: Mapping, source: str,
 
 def write_bundle(directory, payload: Mapping) -> Path | None:
     """Persist one bundle durably as ``<dir>/<id>.json`` (an envelope:
-    CRC, kind, version).  Returns None instead of raising when the write
-    fails: an evidence write must not lose the verdict it documents."""
+    CRC, kind, version), counted as ``provenance.bundle``.  Returns None
+    instead of raising when the write fails, counted as
+    ``provenance.emit_error``: an evidence write must not lose the
+    verdict it documents."""
     from jepsen_tpu_torch.store import durable
 
     try:
@@ -302,9 +307,12 @@ def write_bundle(directory, payload: Mapping) -> Path | None:
         d.mkdir(parents=True, exist_ok=True)
         path = d / f"{payload['id']}.json"
         durable.write_record(path, KIND_BUNDLE, payload)
+        obs.counter("provenance.bundle", source=payload.get("source"),
+                    verdict=payload.get("verdict"))
         return path
     except Exception as e:  # noqa: BLE001 — see docstring
         logger.warning("evidence bundle write failed: %s", e)
+        obs.counter("provenance.emit_error", error=type(e).__name__)
         return None
 
 
@@ -350,6 +358,7 @@ def emit(test: Mapping | None, history, result: dict, *, source: str,
         )
     except Exception as e:  # noqa: BLE001 — provenance never loses verdicts
         logger.warning("evidence bundle build failed: %s", e)
+        obs.counter("provenance.emit_error", error=type(e).__name__)
         return None
     test = test or {}
     if not (test.get("name") and test.get("start-time-str")):

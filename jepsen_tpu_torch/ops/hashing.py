@@ -585,15 +585,32 @@ def dedup_round_probe(capacity: int, P: int, G: int, W: int = 1,
     (``probe_candidates``), one backend at a time: ``{backend: mean
     seconds per round}``.  On the card the rounds run between CUDA
     events after one untimed call; on the CPU they are timed by the host
-    clock.  ``device``: the card unless the caller asks for "cpu"."""
+    clock.  ``device``: the card unless the caller asks for "cpu".
+
+    One ``dedup.round`` span per backend (backend,
+    candidates, capacity, rounds, per_round_us) lands in the telemetry
+    summary's dedup table.  "fused" is probed where the JAX package
+    probes its keep-mask kernel (at least one 128-row tile, and a
+    bucket geometry), and its span carries ``interpret``: True when the
+    wrapper ran its plain PyTorch version (CPU tensors), so such
+    timings never pass for the card's."""
+    from jepsen_tpu_torch import obs
     from jepsen_tpu_torch._platform import resolve_device
 
     dev = resolve_device(device)
     tables = tuple(torch.from_numpy(a).to(dev)
                    for a in probe_candidates(capacity, P, G, W, seed))
     rounds = max(1, int(rounds))
+    n = int(tables[0].shape[0])
     out: dict = {}
     for b in backends:
+        extra = {}
+        if b == "fused":
+            from jepsen_tpu_torch.ops import wide_kernel
+
+            if not (n >= wide_kernel.TILE and bucket_feasible(n)):
+                continue  # below the JAX package's keep-mask geometry
+            extra["interpret"] = dev.type != "cuda"
         _dedup_stage(*tables, 4, b)
         if dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
@@ -609,6 +626,11 @@ def dedup_round_probe(capacity: int, P: int, G: int, W: int = 1,
             for _ in range(rounds):
                 _dedup_stage(*tables, 4, b)
             out[b] = (time.perf_counter() - t0) / rounds
+        obs.span_event(
+            "dedup.round", out[b], backend=b, candidates=n,
+            capacity=int(capacity), rounds=rounds,
+            per_round_us=round(out[b] * 1e6, 1), **extra,
+        )
     return out
 
 

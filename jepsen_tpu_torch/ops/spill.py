@@ -1,7 +1,8 @@
 """Bounded-memory frontier management for the chunked engine.
 
-The port of the JAX package's ``ops/spill.py``, without its telemetry
-counters (the process totals stay, as a plain dict):
+The port of the JAX package's ``ops/spill.py``, with its ``frontier.*``
+telemetry counters (mirrored by name into ``obs.metrics``) beside the
+process totals:
 
   * the frontier budget (``resolve_budget_mb``, ``budget_rows``): how
     many device frontier rows a ``frontier_budget_mb`` buys at a
@@ -31,7 +32,9 @@ import threading
 
 import numpy as np
 
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.convert import fok_bits
+from jepsen_tpu_torch.obs import metrics as _metrics
 from jepsen_tpu_torch.ops import hashing
 
 FRONTIER_BUDGET_ENV = "JEPSEN_TPU_FRONTIER_BUDGET_MB"
@@ -184,6 +187,9 @@ class HostRing:
         self.bytes_total += nbytes
         _count("spill_rows", n)
         _count("spill_bytes", nbytes)
+        # mirrored by name (jepsen_tpu_frontier_spill_bytes_total)
+        obs.counter("frontier.spill_rows", n)
+        obs.counter("frontier.spill_bytes", nbytes)
 
     def discard(self) -> None:
         """Drop pending entries without accounting them as spill (a
@@ -271,6 +277,7 @@ def merge_frontiers(parts) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
     stats = {"rows_in": int(n), "rows_out": int(sel.size),
              "buckets": int(starts.size)}
     _count("spill_merges")
+    obs.counter("frontier.spill_merges")
     return state[sel], fok[sel], fcr[sel], stats
 
 
@@ -431,6 +438,7 @@ def factor_packed(packed, max_states: int = 256) -> tuple[dict, int]:
     out["grp_open"] = new_open
     out["G"] = new_open.shape[1]
     _count("factorizations", len(drop))
+    obs.counter("frontier.factorizations", len(drop))
     return out, len(drop)
 
 
@@ -485,6 +493,12 @@ def undecidability_report(
             rep["per_device_rows"] = int(per_device_rows)
             rep["mesh_capacity_rows"] = int(mesh_devices) * int(per_device_rows)
     _count("undecidable_reports")
+    obs.event(
+        "frontier.undecidable", barrier=rep["barrier"],
+        capacity=rep["capacity"], growth_rate=rep["growth_rate"],
+        spill_bytes=rep["spill_bytes"], factor_count=rep["factor_count"],
+    )
+    _metrics.inc("frontier.undecidable")
     return rep
 
 

@@ -32,6 +32,7 @@ confirms every refutation on the exact CPU sweep.  Anything else is
 from __future__ import annotations
 
 import logging
+import time
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -40,6 +41,7 @@ import torch
 from jepsen_tpu_torch import faults
 from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import models as m
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch._platform import resolve_device
 from jepsen_tpu_torch.convert import fok_bits
 from jepsen_tpu_torch.checker import wgl_cpu
@@ -755,6 +757,25 @@ def exact_batched_runner(step, F: int, R: int, init_state, tables, slot_lane,
                      slot_onehot, dedup=dedup)
 
 
+#: The JAX package's runner-cache keys seen in this process (the port
+#: has no jitted runners to cache; the keys keep its
+#: ``wgl.runner_cache.*`` counters equal to the JAX package's).
+_RUNNER_KEYS: set = set()
+
+
+def runner_cache_counter(key, kind: str) -> None:
+    """One ``wgl.runner_cache.hit``/``miss`` counter per runner lookup
+    (``kind``: "greedy", "async", "sync" or "exact"): a miss is a key
+    new to the process, where the JAX package pays a jit compile and the
+    port its first-touch costs."""
+    obs.counter(
+        "wgl.runner_cache.hit" if key in _RUNNER_KEYS
+        else "wgl.runner_cache.miss",
+        kind=kind,
+    )
+    _RUNNER_KEYS.add(key)
+
+
 def device_buffer_bytes(device=None) -> int | None:
     """Bytes the caching allocator holds in live tensors on ``device``
     (a CUDA device), or None on the CPU, which keeps no such count."""
@@ -894,7 +915,8 @@ def _attempt_chunk(step, rounds: int, fast: bool, dedup: str, c_tables: dict,
                    slot_lane, slot_onehot, frontier, caps, idx: int,
                    W: int, G: int, dev, *, spill: bool, usable=None,
                    narrow: bool = False, spill_left: int | None = None,
-                   ring=None, on_event=None, barrier: int = 0) -> _Attempt:
+                   ring=None, on_event=None, barrier: int = 0,
+                   count_slices: bool = False) -> _Attempt:
     """Scan one chunk from the carried host ``frontier``, the scan loop
     shared by ``chunked_analysis`` and ``scan_barrier_range``: climb the
     rungs of ``caps`` while the frontier does not fit, scan it (under
@@ -905,9 +927,12 @@ def _attempt_chunk(step, rounds: int, fast: bool, dedup: str, c_tables: dict,
     half as wide, down to ``_MAX_SLICES`` slices, while the spill work
     (``spill_left`` extra slices and retries) lasts.  ``ring`` drops a
     failed attempt's pending rows.  ``on_event`` receives "escalation"
-    and "slice-narrowing".  A launch that fails under the retry policy
-    raises ``_LaunchDegraded`` (its launches counting every attempt's),
-    with ``ring``'s pending rows dropped."""
+    and "slice-narrowing", each also counted (``wgl.chunk.escalations``,
+    ``wgl.chunk.slice_narrowing``); ``count_slices`` counts a
+    multi-slice attempt's slices (``wgl.chunk.slices``).  A launch that
+    fails under the retry policy raises ``_LaunchDegraded`` (its
+    launches counting every attempt's), with ``ring``'s pending rows
+    dropped."""
     def ok(i: int) -> bool:
         return usable is None or usable(i)
 
@@ -923,6 +948,8 @@ def _attempt_chunk(step, rounds: int, fast: bool, dedup: str, c_tables: dict,
             width = F
         cuts = list(range(0, n_in, width)) if spill else []
         cuts = cuts or [0]
+        if count_slices and len(cuts) > 1:
+            obs.counter("wgl.chunk.slices", len(cuts))
         spent += len(cuts) - 1
         try:
             outs = _scan_slices(step, F, rounds, fast, dedup, c_tables,
@@ -941,6 +968,7 @@ def _attempt_chunk(step, rounds: int, fast: bool, dedup: str, c_tables: dict,
         nxt = idx + 1
         retry = False
         if lossy and nxt < len(caps) and caps[nxt] > caps[idx] and ok(nxt):
+            obs.counter("wgl.chunk.escalations")
             if on_event is not None:
                 on_event("escalation", barrier=barrier, to_capacity=caps[nxt])
             idx = nxt  # re-run this chunk wider, from the same frontier
@@ -950,6 +978,7 @@ def _attempt_chunk(step, rounds: int, fast: bool, dedup: str, c_tables: dict,
               and width > max(1, (n_in + _MAX_SLICES - 1) // _MAX_SLICES)):
             # a single barrier still overflowing: narrower slices at the
             # same capacity before declaring exhaustion
+            obs.counter("wgl.chunk.slice_narrowing")
             if on_event is not None:
                 on_event("slice-narrowing", barrier=barrier)
             spent += 1
@@ -1070,6 +1099,7 @@ def chunked_analysis(
     fault events.  ``device``: the card unless the caller asks for
     "cpu".
     """
+    t0 = time.perf_counter()
     dev = resolve_device(device)
     dedup = resolve_dedup_backend(dedup_backend)
     deadline = faults.Deadline.coerce(deadline)
@@ -1156,6 +1186,7 @@ def chunked_analysis(
         except ckpt.CheckpointError as e:
             logger.warning("unreadable chunk checkpoint in %s (%s); running "
                            "fresh", checkpoint_dir, e)
+            obs.counter("fault.checkpoint.mismatch", reason="unreadable")
         if saved is not None and saved["config"] != ck_cfg:
             quarantined = ckpt.quarantine_chunked(
                 checkpoint_dir, reason="stale-fingerprint")
@@ -1163,10 +1194,18 @@ def chunked_analysis(
                 "chunk checkpoint in %s was written for different inputs "
                 "or config; running fresh (stale files quarantined: %s)",
                 checkpoint_dir, quarantined)
+            obs.counter("fault.checkpoint.quarantined",
+                        reason="fingerprint", files=quarantined)
+            obs.counter("fault.checkpoint.mismatch", reason="fingerprint")
             saved = None
         if saved is not None:
             if saved["result"] is not None:
                 # a finished run: its result, provenance and all
+                obs.span_event(
+                    "fault.checkpoint.load", 0.0,
+                    barrier=int(saved["barrier"]), chunked=True,
+                    complete=True,
+                )
                 return saved["result"]
             st, fo, fc = saved["frontier"]
             f_state = np.asarray(st, np.int32)
@@ -1178,6 +1217,10 @@ def chunked_analysis(
             verified = saved["verified"]
             launches = saved["launches"]
             resume_spill_spent = saved.get("spill_spent", 0)
+            obs.span_event(
+                "fault.checkpoint.load", 0.0, barrier=start_barrier,
+                rows=int(f_state.shape[0]), chunked=True,
+            )
             _pv("checkpoint.restored", barrier=start_barrier)
 
     def _save_ck(barrier: int, result: dict | None = None) -> str | None:
@@ -1197,6 +1240,7 @@ def chunked_analysis(
         except Exception:  # noqa: BLE001 — a recovery aid, not a verdict input
             logger.warning("couldn't write chunk checkpoint to %s",
                            checkpoint_dir, exc_info=True)
+            obs.counter("fault.checkpoint.error")
             return None
 
     def _offset_bounds(start: int) -> list[tuple[int, int]]:
@@ -1227,6 +1271,20 @@ def chunked_analysis(
             s["factors"] = factors
         return s
 
+    def _emit(valid, stats: dict) -> None:
+        """One ``wgl.chunked`` span per run: the frontier sweep's
+        occupancy, loss and spill."""
+        obs.span_event(
+            "wgl.chunked", time.perf_counter() - t0, valid=valid,
+            chunks=stats.get("chunks"), launches=stats.get("launches"),
+            peak_frontier=stats.get("frontier-peak"),
+            capacity=stats.get("capacity"), lossy=stats.get("lossy?"),
+            verified_barriers=stats.get("verified-barriers"), dedup=dedup,
+            spill_rows=stats.get("spill-rows"),
+            spill_bytes=stats.get("spill-bytes"),
+            factors=stats.get("factors"),
+        )
+
     def _report(**kw) -> dict:
         return spill_mod.undecidability_report(
             barriers_total=B0, budget_mb=budget_mb, budget_rows=b_rows,
@@ -1251,11 +1309,14 @@ def chunked_analysis(
     while si < len(spans):
         lo, hi = spans[si]
         if deadline is not None and deadline.expired():
+            obs.counter("fault.deadline.trip")
+            obs.event("fault.deadline", at="wgl-chunk", barrier=lo)
             _pv("fault.deadline", at="wgl-chunk", barrier=lo)
             ck = _save_ck(lo)
             note = f"; resumable checkpoint: {ck}" if ck else ""
             stats = _stats(caps[idx])
             stats["verified-barriers"] = verified
+            _emit("unknown", stats)
             return _finish(_attach_report({
                 "valid?": "unknown",
                 "cause": ("deadline-exceeded: check budget exhausted at "
@@ -1274,12 +1335,15 @@ def chunked_analysis(
                 W, G, dev, spill=spill_on, usable=_usable,
                 narrow=spill_on and (hi - lo) == 1,
                 spill_left=spill_budget - spill_spent, ring=ring,
-                on_event=on_event, barrier=lo)
+                on_event=on_event, barrier=lo, count_slices=True)
         except _LaunchDegraded as e:
             launches += e.launches
+            obs.counter("fault.launch.degraded", what="wgl.chunk",
+                        capacity=e.capacity, lanes=1, error=e.cause)
             _pv("fault.launch-degraded", capacity=e.capacity, error=e.cause)
             stats = _stats(e.capacity)
             stats["verified-barriers"] = verified
+            _emit("unknown", stats)
             return _finish(_attach_report({
                 "valid?": "unknown",
                 "cause": f"device launch failed: {e.cause}",
@@ -1298,6 +1362,7 @@ def chunked_analysis(
             rel = _chunk_bounds(quiet[lo:hi], hi - lo,
                                 max(1, (hi - lo + 1) // 2))
             spans[si:si + 1] = [(lo + a, lo + b) for a, b in rel]
+            obs.counter("wgl.chunk.bisections")
             _pv("chunk.bisection", barrier=lo)
             spill_spent += 1
             continue
@@ -1317,6 +1382,15 @@ def chunked_analysis(
                 capacity=caps[idx], frontier_rows=n_in,
                 peak_frontier=max(peak_total, caps[idx] + 1), barrier=lo)
         lossy_any |= any_lossy
+        if att.truncated:
+            obs.counter("wgl.frontier.truncations")
+        if obs.observing():
+            # the carried frontier's chunk-boundary device footprint
+            # (None on the CPU, which keeps no allocator count)
+            db = device_buffer_bytes(dev)
+            if db is not None:
+                obs.gauge("device.buffer_bytes", db, at="wgl-chunk",
+                          barrier=lo)
         died = _death(slice_outs)
         if died is not None:
             gb = lo + died
@@ -1327,6 +1401,7 @@ def chunked_analysis(
             stats["witnessed-barriers"] = gb
             if lossy_any:
                 _pv("chunk.lossy-death", barrier=gb)
+                _emit("unknown", stats)
                 return _finish(_attach_report({
                     "valid?": "unknown",
                     "cause": "frontier capacity or closure rounds exhausted",
@@ -1337,6 +1412,7 @@ def chunked_analysis(
             res = {"valid?": False, "op": history[op_pos], "kernel": stats}
             if fast:
                 res["provisional?"] = True  # hash-decided kills
+            _emit(False, stats)
             return _finish(res)
         if not lossy_any:
             verified = hi
@@ -1350,6 +1426,7 @@ def chunked_analysis(
                 exhaust_rep = _report(
                     capacity=caps[idx], frontier_rows=rows,
                     peak_frontier=peak_g, barrier=hi, reason="host-budget")
+            obs.counter("wgl.frontier.truncations")
             _pv("frontier.truncated", reason="host-budget", barrier=hi)
             f_state = f_state[:host_rows_max]
             f_fok = f_fok[:host_rows_max]
@@ -1362,6 +1439,7 @@ def chunked_analysis(
     stats = _stats(caps[idx])
     stats["verified-barriers"] = verified
     stats["witnessed-barriers"] = B0  # the survivor is the whole witness
+    _emit(True, stats)
     result = _finish({"valid?": True, "kernel": stats})
     _save_ck(B0, result=result)
     return result
@@ -1448,6 +1526,8 @@ def scan_barrier_range(
                 on_event=_ev, barrier=clo)
         except _LaunchDegraded as e:
             launches += e.launches
+            obs.counter("fault.launch.degraded", what="wgl.chunk",
+                        capacity=e.capacity, lanes=1, error=e.cause)
             _ev("launch-degraded", capacity=e.capacity, error=e.cause)
             return _out(error=e.cause)
         idx = att.idx
@@ -1455,6 +1535,7 @@ def scan_barrier_range(
         peak_g = max(peak_g, att.peak_max)
         lossy_any |= att.lossy
         if att.truncated:
+            obs.counter("wgl.frontier.truncations")
             _ev("truncated", barrier=clo)
         died = _death(att.outs)
         if died is not None:
@@ -1589,6 +1670,7 @@ def analysis_async(
     B = packed["B"]
     T = int(ticks) if ticks is not None else async_ticks(B)
     F, W, G = int(capacity), packed["W"], packed["G"]
+    t0 = time.perf_counter()
     tables, slot_lane, slot_onehot = _history_tables(packed, dev)
     fresh = fresh_frontier(1, F, W, G, [packed["init_state"]])
     out = run_async(
@@ -1600,6 +1682,11 @@ def analysis_async(
         [o.long() for o in out[:4]], 1)[0].tolist())
     stats = {"frontier-peak": peak, "capacity": F, "ticks": T,
              "lossy?": bool(lossy)}
+    obs.span_event(
+        "wgl.async", time.perf_counter() - t0, valid=bool(valid),
+        lossy=bool(lossy), peak_frontier=peak, capacity=F, ticks=T,
+        dedup=dedup,
+    )
     if valid:
         return {"valid?": True, "kernel": stats}
     if not lossy:

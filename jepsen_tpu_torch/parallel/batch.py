@@ -34,6 +34,16 @@ launch still failing degrades only its lanes); ``checkpoint_dir`` and
 ``resume`` (``store.checkpoint``); a ``deadline`` polled at stage
 boundaries; rung admission (``admission``: continuous batching); and a
 per-history decision path (``obs.provenance``) on every result.
+
+Telemetry (``obs``), with the JAX package's names and keys: a
+``ladder.launch`` span per launch (engine, capacity, lanes, the card's
+index as ``devices``, and ``compiled``: the launch's (engine, padded
+shape) bucket was new to the process), one ``ladder.stage`` span per
+rung with its launch count, compile/execute split and device-memory
+high-water mark, the ``ladder.unknowns_remaining`` gauge, and the
+``confirm.*``, ``fault.*`` and ``dedup.*`` names.  There is no jit, so
+``compile_s`` holds a bucket's first-touch costs: the allocator's
+growth and, on the process's first launch, the kernels' build and load.
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import _confirm_worker, faults
+from jepsen_tpu_torch import _confirm_worker, faults, obs
 from jepsen_tpu_torch import models as m
 from jepsen_tpu_torch._platform import resolve_device
 from jepsen_tpu_torch.checker import wgl_cpu
@@ -64,6 +74,15 @@ from jepsen_tpu_torch.parallel.mesh import CROSS_CARD, Mesh
 from jepsen_tpu_torch.store import checkpoint as _ckpt
 
 logger = logging.getLogger(__name__)
+
+#: (step, engine, shape...) buckets already launched in this process (the
+#: JAX package's keys): a launch whose bucket is new lands in the stage
+#: table's compile_s column, a warm one in execute_s.
+_SEEN_SHAPES: set[tuple] = set()
+
+#: dedup shapes already probed in this process (the dedup.round probe a
+#: recorded run ends with): one probe per shape per process.
+_PROBED_DEDUP_SHAPES: set[tuple] = set()
 
 #: Reused across batch_analysis calls (spawn startup is ~seconds).
 #: Workers run only the torch-free ``_confirm_worker`` tasks.
@@ -236,14 +255,17 @@ def _pad_lanes(a: np.ndarray, n_pad: int) -> np.ndarray:
 
 def _launch(st_engine: str, batch_cap: int, sub: list[dict],
             sub_resumes, dedup: str, device, rounds: int,
-            pad_to: int | None = None, halved: bool = False):
+            pad_to: int | None = None, halved: bool = False,
+            acc: dict | None = None):
     """Stack ``sub`` to common bucket shapes and run one batched engine
     launch ("greedy", "async", "sync" or "exact"); returns (valid,
     failed_at, lossy, peak) as host arrays of len(sub), the padded lane
     count, and the async engine's resume snapshot as device tensors (or
     None).  The lane axis pads to ``padded_batch``, or up to ``pad_to``
     (continuous batching's fixed width), or for a ``halved`` launch to
-    ``_halved_pad``."""
+    ``_halved_pad``.  ``acc``, when given, receives the launch's
+    (engine, shape) bucket as ``"_key"`` (the JAX package's key)."""
+    acc = {} if acc is None else acc
     B, P, G = bucket_geometry(
         max(p["B"] for p in sub), max(p["P"] for p in sub),
         max(p["G"] for p in sub),
@@ -265,6 +287,8 @@ def _launch(st_engine: str, batch_cap: int, sub: list[dict],
     n_active = dev(stacked["n_active"])
     step = sub[0]["step"]
     if st_engine == "greedy":
+        acc["_key"] = (step, "greedy", B, P, G, W, n_pad)
+        wgl.runner_cache_counter((step, B, P, G, W), "greedy")
         finished, _stuck, _fired = wgl.greedy_run(
             step, B, dev(stacked["init_state"]), n_active, tables,
             slot_lane, slot_onehot)
@@ -275,6 +299,11 @@ def _launch(st_engine: str, batch_cap: int, sub: list[dict],
     if st_engine in ("sync", "exact"):
         runner = (wgl.batched_runner if st_engine == "sync"
                   else wgl.exact_batched_runner)
+        acc["_key"] = (step, st_engine, batch_cap, int(rounds), B, P, G, W,
+                       n_pad, dedup)
+        wgl.runner_cache_counter(
+            (step, batch_cap, int(rounds), P, G, W, st_engine == "sync",
+             dedup), st_engine)
         tables["bar_active"] = dev(stacked["bar_active"])
         out = runner(step, batch_cap, int(rounds), dev(stacked["init_state"]),
                      tables, slot_lane, slot_onehot, dedup=dedup)
@@ -293,6 +322,8 @@ def _launch(st_engine: str, batch_cap: int, sub: list[dict],
     b_rem = int(max(1, (stacked["n_active"] - bptr0).max()))
     b_rem = 1 << max(5, (b_rem - 1).bit_length())
     T = wgl.async_ticks(min(b_rem, B), batch_cap)
+    acc["_key"] = (step, "async", batch_cap, T, B, P, G, W, n_pad, dedup)
+    wgl.runner_cache_counter((step, batch_cap, T, B, P, G, W, dedup), "async")
     out = wgl.run_async(
         step, F, T, dev(bptr0), dev(st0), dev(fo0), dev(fc0), dev(al0),
         n_active, tables, slot_lane, slot_onehot, dedup=dedup,
@@ -445,6 +476,8 @@ def batch_analysis(
         else:
             packs.append(p)
             idxs.append(i)
+    obs.span_event("ladder.pack", time.perf_counter() - t_pack,
+                   histories=len(histories), tensorizable=len(packs))
     rung_stats: list[dict] = []
     if stats is None:
         stats = {}
@@ -472,6 +505,7 @@ def batch_analysis(
     if checkpoint_dir is not None or resume:
         fp = _ckpt.fingerprint(histories)
     if resume and checkpoint_dir is not None and _ckpt.exists(checkpoint_dir):
+        t_load = time.perf_counter()
         try:
             restored = _ckpt.load(checkpoint_dir)
         except _ckpt.CheckpointError as e:
@@ -479,6 +513,10 @@ def batch_analysis(
             # the uninterrupted verdicts
             logger.warning("unreadable checkpoint in %s (%s); running fresh",
                            checkpoint_dir, e)
+            obs.counter("fault.checkpoint.mismatch",
+                        reason=getattr(e, "report", None) and
+                        e.report.get("reason") or "unreadable",
+                        report=getattr(e, "report", None))
         if restored is not None and restored["config"].get("fingerprint") != fp:
             quarantined = _ckpt.quarantine(checkpoint_dir,
                                            reason="stale-fingerprint")
@@ -486,6 +524,9 @@ def batch_analysis(
                 "checkpoint in %s was written for different histories; "
                 "running fresh; stale files quarantined: %s",
                 checkpoint_dir, quarantined)
+            obs.counter("fault.checkpoint.quarantined",
+                        reason="fingerprint", files=quarantined)
+            obs.counter("fault.checkpoint.mismatch", reason="fingerprint")
             restored = None
         if restored is not None:
             # the saved config wins: verdict identity needs the original
@@ -503,6 +544,11 @@ def batch_analysis(
             frontier_budget_mb = cfg.get(
                 "frontier_budget_mb", frontier_budget_mb)
             start_stage = int(restored["stage"])
+            obs.span_event(
+                "fault.checkpoint.load", time.perf_counter() - t_load,
+                stage=start_stage, pending=len(restored["pending"]),
+                complete=restored["complete"],
+            )
             if restored["complete"]:
                 # a finished run: its verdicts, no device work; each
                 # records the restore in its provenance
@@ -572,6 +618,76 @@ def batch_analysis(
         for _pi in range(len(histories)):
             _pv(_pi, "checkpoint.restored", stage=start_stage)
 
+    #: the card every launch of this ladder runs on: its index, stamped
+    #: once on launch and stage spans (logical mesh shards share it)
+    _dev_ids = [device.index or 0]
+
+    #: per-stage launch accounting for the telemetry stage table
+    launch_acc: dict = {}
+
+    def _reset_launch_acc() -> None:
+        launch_acc.update(
+            launches=0, compile_launches=0, compile_s=0.0, execute_s=0.0,
+            device_bytes_peak=0,
+        )
+
+    _reset_launch_acc()
+
+    def _launch_obs(st_engine: str, batch_cap: int, sub: list[dict],
+                    sub_resumes=None, pad_to: int | None = None,
+                    halved: bool = False):
+        """``_launch`` under a ``ladder.launch`` span, which closes once
+        the launch's results are on the host: counts the launch as
+        compile (a bucket new to the process) or execute, and, when
+        observing, samples the card's allocated bytes after it (the
+        stage's memory high-water mark)."""
+        with obs.span("ladder.launch", engine=st_engine, capacity=batch_cap,
+                      lanes=len(sub), devices=_dev_ids) as sp:
+            t0 = time.perf_counter()
+            out = _launch(st_engine, batch_cap, sub, sub_resumes, dedup,
+                          device, rounds, pad_to, halved, acc=launch_acc)
+            dt = time.perf_counter() - t0
+            key = launch_acc.pop("_key", None)
+            compiled = key is not None and key not in _SEEN_SHAPES
+            if key is not None:
+                _SEEN_SHAPES.add(key)
+            launch_acc["launches"] += 1
+            if compiled:
+                launch_acc["compile_launches"] += 1
+                launch_acc["compile_s"] += dt
+            else:
+                launch_acc["execute_s"] += dt
+            obs.counter(
+                "ladder.compile_cache.miss" if compiled
+                else "ladder.compile_cache.hit",
+                engine=st_engine,
+            )
+            sp.set(compiled=compiled)
+            if obs.observing():
+                db = wgl.device_buffer_bytes(device)
+                if db is not None and db > launch_acc["device_bytes_peak"]:
+                    launch_acc["device_bytes_peak"] = db
+        return out
+
+    def _emit_stage(t_stage: float, stage_attrs: dict, **extra) -> None:
+        """One ladder.stage span per rung: wall time, lanes in, verdict
+        counts, the stage's compile/execute launch split and its
+        device-memory high-water mark."""
+        mem = {}
+        if launch_acc.get("device_bytes_peak"):
+            mem["device_bytes_peak"] = launch_acc["device_bytes_peak"]
+            obs.gauge("device.buffer_bytes", launch_acc["device_bytes_peak"],
+                      at="ladder-stage", stage=stage_attrs.get("stage"))
+        obs.span_event(
+            "ladder.stage", time.perf_counter() - t_stage,
+            devices=_dev_ids,
+            launches=launch_acc["launches"],
+            compile_launches=launch_acc["compile_launches"],
+            compile_s=round(launch_acc["compile_s"], 6),
+            execute_s=round(launch_acc["execute_s"], 6),
+            **mem, **stage_attrs, **extra,
+        )
+
     stages = ([(engine, c) for c in batch_caps]
               + [("exact", c) for c in exact_caps])
     if greedy_first and stages:
@@ -601,8 +717,9 @@ def batch_analysis(
             pool, fut = _submit_confirmation(
                 confirm_workers, model, list(histories[i]),
                 confirm_max_configs, int(info["op_pos"]))
+            obs.counter("confirm.submitted")
             confirm_futs[i] = (pool, fut, info["res"], time.perf_counter(),
-                               int(info["op_pos"]))
+                               int(info["op_pos"]), obs.capture())
             results[i] = info["res"]
         for e in restored["device_confirms"]:
             if e["i"] in pack_of:
@@ -632,8 +749,9 @@ def batch_analysis(
             # they are now, so a resume over the grown list matches
             config["fingerprint"] = _ckpt.fingerprint(histories)
             fp_dirty = False
+        t0 = time.perf_counter()
         try:
-            return _ckpt.save(
+            path = _ckpt.save(
                 checkpoint_dir,
                 config=config,
                 stage=next_stage,
@@ -641,7 +759,8 @@ def batch_analysis(
                 pending=[idxs[k] for k in pending],
                 confirms={
                     i: {"res": res, "op_pos": op_pos}
-                    for i, (_p, _f, res, _t, op_pos) in confirm_futs.items()
+                    for i, (_p, _f, res, _t, op_pos, _c)
+                    in confirm_futs.items()
                 },
                 device_confirms=[
                     {"i": idxs[k], "failed_at": fat, "cap": cap, "res": res}
@@ -655,7 +774,13 @@ def batch_analysis(
         except Exception:  # noqa: BLE001 — see docstring
             logger.warning("couldn't write checker checkpoint to %s",
                            checkpoint_dir, exc_info=True)
+            obs.counter("fault.checkpoint.error")
             return None
+        obs.span_event(
+            "fault.checkpoint.save", time.perf_counter() - t0,
+            stage=next_stage, pending=len(pending), complete=complete,
+        )
+        return path
 
     early_confirmed: set[int] = set()  # resolved at a rung boundary
 
@@ -668,9 +793,14 @@ def batch_analysis(
             and not e[1].cancelled() and e[1].exception() is None
         ]
         for i in done:
-            _pool, fut, dev_res, _t, _op_pos = confirm_futs.pop(i)
+            _pool, fut, dev_res, t_submit, _op_pos, ctx = confirm_futs.pop(i)
             early_confirmed.add(i)
-            results[i] = _resolve_confirmation(dev_res, fut.result())
+            with obs.attach(ctx):
+                obs.gauge(
+                    "confirm.queue_latency_s",
+                    round(time.perf_counter() - t_submit, 6), history=i,
+                )
+                results[i] = _resolve_confirmation(dev_res, fut.result())
             _pv(i, "confirm.resolved", mode="worker",
                 outcome=_prov.verdict_str(results[i].get("valid?")))
             _notify(i)
@@ -710,6 +840,7 @@ def batch_analysis(
             pending.append(k)
             rungs[k] = 0
             _pv(i, "admission.joined", at_stage=min_rung)
+            obs.counter("ladder.rung_admission", stage=min_rung)
 
     pad_lanes = getattr(admission, "pad_lanes", None)
     pad_lanes = int(pad_lanes) if pad_lanes else None
@@ -761,6 +892,9 @@ def batch_analysis(
             deadline_tripped = True
             ck = _save_checkpoint(si)
             trip_checkpointed = ck is not None
+            obs.event("fault.deadline", at="ladder-stage", stage=si,
+                      unresolved=len(pending))
+            obs.counter("fault.deadline.trip")
             note = f"; resumable checkpoint: {ck}" if ck else ""
             for k in pending:
                 i = idxs[k]
@@ -776,9 +910,30 @@ def batch_analysis(
                 if isinstance(prev, dict) and prev.get("kernel"):
                     results[i]["kernel"] = prev["kernel"]
                 no_fallback.add(i)
+            obs.gauge("ladder.unknowns_remaining", len(pending), final=True)
             pending = []
             break
+        _reset_launch_acc()
         t_stage = time.perf_counter()
+        stage_attrs = dict(stage=si, engine=st_engine, capacity=batch_cap,
+                           lanes=len(group), dedup=dedup)
+        if dedup == "fused" and st_engine in ("async", "sync") and group:
+            # the fused update's routing gate at the rung's widest pack
+            # (the JAX package's "pallas_routed"); a rung it routes away
+            # from the kernel is counted, so the stage rows never read
+            # as kernel rungs when they were not
+            from jepsen_tpu_torch.ops import wide_kernel as _wk
+
+            _pP = max(packs[k]["P"] for k in group)
+            _pG = max(packs[k]["G"] for k in group)
+            _routed = _wk.fused_feasible(batch_cap * (1 + _pP + _pG),
+                                         batch_cap, _pP + 1)
+            stage_attrs.update(
+                pallas_routed=_routed,
+                mesh_devices=mesh.size if mesh is not None else 1)
+            if not _routed:
+                obs.counter("dedup.pallas_fallback",
+                            stage=si, capacity=batch_cap)
         if st_engine == "exact":
             budget = _EXACT_LANE_BUDGET
         elif st_engine == "async" and carry_frontier:
@@ -811,9 +966,9 @@ def batch_analysis(
             t0 = time.perf_counter()
             try:
                 out = faults.call_with_retry(
-                    lambda: _launch(st_engine, batch_cap,
-                                    [packs[k] for k in part], sub_res, dedup,
-                                    device, rounds, pad_to, halved),
+                    lambda: _launch_obs(st_engine, batch_cap,
+                                        [packs[k] for k in part], sub_res,
+                                        pad_to, halved),
                     ctx)
                 failure = None
             except faults.LaunchFailure as lf:
@@ -828,6 +983,11 @@ def batch_analysis(
                 if kind == "oom" and not spilled and faults.try_oom_spill(ctx):
                     # freed device memory: the same shape once more at
                     # full size before shrinking any work
+                    obs.counter(
+                        "fault.launch.oom_spill_retry", stage=si,
+                        engine=st_engine, capacity=batch_cap,
+                        lanes=len(part),
+                    )
                     stats["oom_spill_retries"] += 1
                     for k in part:
                         _pv(idxs[k], "fault.oom-spill-retry", stage=si,
@@ -837,17 +997,28 @@ def batch_analysis(
                 if kind == "oom" and len(part) > 1:
                     mid = (len(part) + 1) // 2
                     budget_scale = max(budget_scale / 2, 1.0 / max(1, budget))
+                    obs.counter(
+                        "fault.launch.oom_halving", stage=si,
+                        engine=st_engine, capacity=batch_cap,
+                        lanes_from=len(part), lanes_to=mid,
+                    )
                     stats["oom_halvings"] += 1
                     counts["halvings"] += 1
                     for k in part:
                         _pv(idxs[k], "fault.oom-halving", stage=si,
                             engine=st_engine, capacity=batch_cap)
                     # the fixed continuous pad is dropped: replaying the
-                    # halves at the width that just failed would fail
-                    faults.try_oom_spill(ctx)
+                    # halves at the width that just failed would fail; the
+                    # failed attempt's memory goes back to the card first
+                    # (not a recovery, so not a fault.oom.spill)
+                    _device_oom_spiller(ctx)
                     _launch_ft(part[:mid], halved=True, spilled=spilled)
                     _launch_ft(part[mid:], halved=True, spilled=spilled)
                     return
+                obs.counter(
+                    "fault.launch.degraded", stage=si, engine=st_engine,
+                    capacity=batch_cap, lanes=len(part), error=cause,
+                )
                 for k in part:
                     _pv(idxs[k], "fault.launch-degraded", stage=si,
                         engine=st_engine, capacity=batch_cap, error=cause)
@@ -897,6 +1068,7 @@ def batch_analysis(
             no_fallback.add(idxs[k])
         still = []
         n_true = n_refuted = 0
+        peak_max = n_lossy = 0
         for k in group:
             if k not in lane_out:
                 continue  # degraded this stage
@@ -904,6 +1076,8 @@ def batch_analysis(
             i = idxs[k]
             kstats = {"frontier-peak": int(peak_k), "capacity": batch_cap,
                       "lossy?": bool(lossy_k)}
+            peak_max = max(peak_max, int(peak_k))
+            n_lossy += bool(lossy_k)
             pending_lane = _stays_pending(valid_k, fat_k, lossy_k)
             if not pending_lane and fat_k < 0:
                 n_true += 1
@@ -931,8 +1105,9 @@ def batch_analysis(
                     pool, fut = _submit_confirmation(
                         confirm_workers, model, list(histories[i]),
                         confirm_max_configs, op_pos)
+                    obs.counter("confirm.submitted")
                     confirm_futs[i] = (pool, fut, res, time.perf_counter(),
-                                       op_pos)
+                                       op_pos, obs.capture())
                     results[i] = res  # placeholder; resolved below
             else:
                 still.append(k)
@@ -947,6 +1122,13 @@ def batch_analysis(
         for k in still:
             rungs[k] = si + 1
         pending = sorted(rest + still)
+        _emit_stage(
+            t_stage, stage_attrs, resolved=n_true, refuted=n_refuted,
+            unknowns_remaining=len(still), peak_frontier=peak_max,
+            lossy=n_lossy, degraded=len(degraded),
+        )
+        obs.gauge("ladder.unknowns_remaining", len(still), stage=si,
+                  capacity=batch_cap)
         rung_stats.append(dict(
             stage=si, engine=st_engine, capacity=batch_cap,
             lanes=len(group), padded=launched_pad[0],
@@ -1016,9 +1198,17 @@ def batch_analysis(
             resolved=len(exhausted) - len(still_exhausted),
             seconds=time.perf_counter() - t_rescue,
         )
+        obs.span_event(
+            "ladder.mesh_rescue", stats["mesh_rescue"]["seconds"],
+            capacity=rescue_cap, mesh_devices=D, lanes=len(exhausted),
+            resolved=stats["mesh_rescue"]["resolved"],
+        )
         exhausted = still_exhausted
 
     if exhausted:
+        # the lanes the whole ladder left undecided: a final gauge, and a
+        # cause in each unknown result
+        obs.gauge("ladder.unknowns_remaining", len(exhausted), final=True)
         if exact_caps:
             note = (f"capacity ladder {tuple(batch_caps)} and exact "
                     f"escalation {tuple(exact_caps)} exhausted")
@@ -1078,6 +1268,9 @@ def batch_analysis(
             trip_checkpointed = ck is not None
         else:
             ck = _ckpt.json_path(checkpoint_dir) if checkpoint_dir else None
+        obs.event("fault.deadline", at="device-confirm",
+                  unresolved=len(device_confirms))
+        obs.counter("fault.deadline.trip")
         note = f"; resumable checkpoint: {ck}" if ck else ""
         for k, _fat, _cap, res in device_confirms:
             _pv(idxs[k], "fault.deadline", at="device-confirm")
@@ -1094,6 +1287,7 @@ def batch_analysis(
         # prefixes: content-decided kills make a lossless exact death a
         # final refutation; a surviving or lossy lane (the rare
         # hash-collision case) takes the bounded sweep.
+        _reset_launch_acc()
         t_conf = time.perf_counter()
         n_conf_launches = 0
         by_cap: dict[int, list[tuple]] = {}
@@ -1115,14 +1309,15 @@ def batch_analysis(
                 try:
                     (gvalid, gfailed, glossy, _pk), _n, _s = (
                         faults.call_with_retry(
-                            lambda: _launch("exact", cap, sub, None, dedup,
-                                            device, rounds), ctx))
+                            lambda: _launch_obs("exact", cap, sub), ctx))
                     n_conf_launches += 1
                 except faults.LaunchFailure as lf:
                     # no halving and no sweep in the launch's place: each
                     # refutation it carried is unknown with the failure
                     cause = faults.describe(lf.cause)
                     faults.release(lf)
+                    obs.counter("fault.launch.degraded", what="ladder.confirm",
+                                capacity=cap, lanes=len(sub), error=cause)
                     for (k, _fat, res) in cgroup[s0: s0 + lanes_cap]:
                         i = idxs[k]
                         _pv(i, "fault.launch-degraded", at="device-confirm",
@@ -1142,22 +1337,35 @@ def batch_analysis(
         stats["device_confirm"] = dict(
             refutations=len(device_confirms), launches=n_conf_launches,
             seconds=time.perf_counter() - t_conf)
+        obs.span_event(
+            "ladder.confirm.device", stats["device_confirm"]["seconds"],
+            refutations=len(device_confirms), launches=launch_acc["launches"],
+        )
         device_confirms = []  # resolved; keep them out of later checkpoints
 
     if cpu_fallback:
+        t_fb = time.perf_counter()
+        n_fb = 0
         for i, r in enumerate(results):
             if deadline is not None and deadline.expired():
                 # the budget is spent: the remaining unknowns keep their
                 # causes
-                deadline_tripped = True
+                if not deadline_tripped:
+                    deadline_tripped = True
+                    obs.counter("fault.deadline.trip")
+                    obs.event("fault.deadline", at="cpu-fallback")
                 break
             if (r is not None and r["valid?"] == "unknown"
                     and i not in confirm_futs and i not in device_resolved
                     and i not in early_confirmed and i not in no_fallback):
+                n_fb += 1
                 results[i] = wgl_cpu.sweep_analysis(model, histories[i])
                 _pv(i, "cpu-fallback", engine="sweep",
                     outcome=_prov.verdict_str(results[i].get("valid?")))
                 _notify(i)
+        if n_fb:
+            obs.span_event("ladder.cpu-fallback", time.perf_counter() - t_fb,
+                           histories=n_fb)
 
     def _degrade_confirmation(i: int, dev_res: dict, e: BaseException) -> None:
         """A confirmation worker died twice: degrade this history only.
@@ -1184,57 +1392,88 @@ def batch_analysis(
         }
 
     t_drain = time.perf_counter()
-    for i, (pool, fut, dev_res, _t_submit, op_pos) in confirm_futs.items():
-        resubmitted = False
-        cpu_res = None
-        while True:
-            try:
-                if fut is None:
-                    raise BrokenProcessPool("no confirmation worker available")
-                timeout = None
-                if deadline is not None:
-                    # a small grace so that nearly-done sweeps land
-                    timeout = max(5.0, deadline.remaining())
-                cpu_res = fut.result(timeout=timeout)
-                break
-            except FutureTimeout:
-                deadline_tripped = True
-                confirm_degraded.add(i)
-                _pv(i, "fault.deadline", at="confirm-drain")
-                results[i] = {
-                    "valid?": "unknown",
-                    "cause": ("device refutation; deadline-exceeded before the "
-                              "confirmation sweep finished"),
-                    "kernel": dev_res.get("kernel"),
-                }
-                break
-            except BrokenProcessPool:
-                # reset only the pool the failure came from, and only while
-                # it is still the installed one
-                if pool is not None and pool is _CONFIRM_POOL:
-                    _drop_confirm_pool()
-                if not resubmitted:
-                    # the task died with its pool: one resubmit
-                    resubmitted = True
-                    _pv(i, "confirm.resubmit")
-                    pool, fut = _submit_confirmation(
-                        confirm_workers, model, list(histories[i]),
-                        confirm_max_configs, op_pos)
-                    continue
-                _degrade_confirmation(
-                    i, dev_res,
-                    BrokenProcessPool("confirmation worker failed twice"))
-                break
-            except Exception as e:  # noqa: BLE001 — a dead worker must not
-                # lose the other histories' verdicts
-                _degrade_confirmation(i, dev_res, e)
-                break
-        if cpu_res is not None:
-            results[i] = _resolve_confirmation(dev_res, cpu_res)
-            _pv(i, "confirm.resolved", mode="worker",
-                outcome=_prov.verdict_str(results[i].get("valid?")))
+    for i, (pool, fut, dev_res, t_submit, op_pos, ctx) in confirm_futs.items():
+        with obs.attach(ctx):
+            # the submit-time context: every event this resolution
+            # emits carries the originating trace
+            resubmitted = False
+            cpu_res = None
+            while True:
+                try:
+                    if fut is None:
+                        raise BrokenProcessPool(
+                            "no confirmation worker available")
+                    timeout = None
+                    if deadline is not None:
+                        # a small grace so that nearly-done sweeps land
+                        timeout = max(5.0, deadline.remaining())
+                    cpu_res = fut.result(timeout=timeout)
+                    break
+                except FutureTimeout:
+                    deadline_tripped = True
+                    confirm_degraded.add(i)
+                    obs.counter("fault.deadline.trip")
+                    obs.event("fault.deadline", at="confirm-drain", history=i)
+                    _pv(i, "fault.deadline", at="confirm-drain")
+                    results[i] = {
+                        "valid?": "unknown",
+                        "cause": ("device refutation; deadline-exceeded "
+                                  "before the confirmation sweep finished"),
+                        "kernel": dev_res.get("kernel"),
+                    }
+                    break
+                except BrokenProcessPool:
+                    # reset only the pool the failure came from, and only
+                    # while it is still the installed one
+                    if pool is not None and pool is _CONFIRM_POOL:
+                        _drop_confirm_pool()
+                    if not resubmitted:
+                        # the task died with its pool: one resubmit
+                        resubmitted = True
+                        obs.counter("fault.confirm.resubmit", history=i)
+                        _pv(i, "confirm.resubmit")
+                        pool, fut = _submit_confirmation(
+                            confirm_workers, model, list(histories[i]),
+                            confirm_max_configs, op_pos)
+                        continue
+                    _degrade_confirmation(
+                        i, dev_res,
+                        BrokenProcessPool("confirmation worker failed twice"))
+                    break
+                except Exception as e:  # noqa: BLE001 — a dead worker
+                    # must not lose the other histories' verdicts
+                    _degrade_confirmation(i, dev_res, e)
+                    break
+            if cpu_res is not None:
+                obs.gauge(
+                    "confirm.queue_latency_s",
+                    round(time.perf_counter() - t_submit, 6), history=i,
+                )
+                results[i] = _resolve_confirmation(dev_res, cpu_res)
+                _pv(i, "confirm.resolved", mode="worker",
+                    outcome=_prov.verdict_str(results[i].get("valid?")))
         _notify(i)
     stats["confirm_drain_s"] = time.perf_counter() - t_drain
+    if confirm_futs:
+        obs.span_event("ladder.confirm.drain", stats["confirm_drain_s"],
+                       confirmations=len(confirm_futs))
+
+    if packs and batch_caps and obs.active() is not None:
+        # a recorded run ends with the per-round dedup timing at its
+        # first rung's candidate shape, every backend (one dedup.round
+        # span each), once per shape per process
+        pP = wgl._bucket(max(p["P"] for p in packs), list(P_BUCKETS))
+        pG = wgl._bucket(max(p["G"] for p in packs), list(G_BUCKETS))
+        shape = (batch_caps[0], pP, pG)
+        if shape not in _PROBED_DEDUP_SHAPES:
+            _PROBED_DEDUP_SHAPES.add(shape)
+            t_probe = time.perf_counter()
+            hashing.dedup_round_probe(batch_caps[0], pP, pG, (pP + 31) // 32,
+                                      device=device)
+            obs.span_event(
+                "ladder.dedup-probe", time.perf_counter() - t_probe,
+                capacity=batch_caps[0], active_backend=dedup,
+            )
 
     if checkpoint_dir is not None and not trip_checkpointed:
         # the final checkpoint: complete unless a deadline left resumable

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch import models as m
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.ops import hashing, spill, wgl, wide_kernel
 from jepsen_tpu_torch.parallel.mesh import Mesh
 
@@ -53,6 +54,14 @@ from jepsen_tpu_torch.parallel.mesh import Mesh
 #: JAX package's ``frontier_update`` default, so that each shard keeps
 #: the rows the JAX package keeps.
 SHARDED_DEDUP = "sort"
+
+
+def mesh_device_ids(mesh: Mesh) -> list[int]:
+    """The card index a mesh's launches stamp on their spans' ``devices``
+    attribute: the logical shards of ``parallel.mesh`` share one card,
+    which is stamped once, so a per-device timeline counts its busy
+    time once (the JAX package stamps each device of its mesh)."""
+    return [mesh.device.index or 0]
 
 
 def _route(mesh: Mesh, C: int, state, fok, fcr, alive, cost):
@@ -212,10 +221,12 @@ def sharded_analysis(
     packed = wgl.pad_packed(packed)
     capacities = [capacity] if isinstance(capacity, int) else list(capacity)
     result = None
+    dev_ids = mesh_device_ids(mesh)
     for cap in capacities:
         Fl = max(8, (int(cap) + D - 1) // D)
-        valid, failed_at, lossy, peak = _run_core_sharded(
-            mesh, packed, Fl, int(rounds))
+        with obs.span("sharded.launch", devices=dev_ids, capacity=Fl * D):
+            valid, failed_at, lossy, peak = _run_core_sharded(
+                mesh, packed, Fl, int(rounds))
         stats = {
             "frontier-peak": int(peak),
             "capacity": Fl * D,
@@ -241,13 +252,18 @@ def mesh_round_probe(mesh: Mesh, capacity: int, P_: int, G: int, W: int = 1,
     """Time one mesh-spanning update per round at a rung's global
     candidate shape (``hashing.probe_candidates``): ``{"mesh": seconds
     per round, "occupancy": wide_kernel.mesh_occupancy(...)}``, with
-    ``"mesh"`` None at a shape the mesh stage cannot take.  On the card
-    the rounds run between CUDA events after one untimed call; on the
-    CPU the host clock times them."""
+    ``"mesh"`` None at a shape the mesh stage cannot take (counted as
+    ``dedup.mesh_fallback``).  On the card the rounds run between CUDA
+    events after one untimed call; on the CPU the host clock times them.
+    It emits one ``dedup.mesh_round`` span (mesh_devices,
+    candidates, capacity, rounds, per_round_us, and ``interpret``: True
+    where the wrappers ran their plain versions)."""
     D = mesh.size
     occ = wide_kernel.mesh_occupancy(
         int(capacity), P_, G, W=W, max_count=P_ + 1, devices=D)
     if not occ["feasible"]:
+        obs.counter("dedup.mesh_fallback", capacity=int(capacity),
+                    mesh_devices=D)
         return {"mesh": None, "occupancy": occ}
     dev = mesh.device
     tables = [torch.from_numpy(a).to(dev) for a in
@@ -275,6 +291,11 @@ def mesh_round_probe(mesh: Mesh, capacity: int, P_: int, G: int, W: int = 1,
         for _ in range(rounds):
             update()
         dt = (time.perf_counter() - t0) / rounds
+    obs.span_event(
+        "dedup.mesh_round", dt, backend="fused", mesh_devices=D,
+        candidates=n, capacity=int(capacity), rounds=rounds,
+        per_round_us=round(dt * 1e6, 1), interpret=dev.type != "cuda",
+    )
     return {"mesh": dt, "occupancy": occ}
 
 
@@ -434,6 +455,8 @@ def mesh_kernel_analysis(
     capacities = [capacity] if isinstance(capacity, int) else list(capacity)
     if D < 2 or any(not _mesh_rung_geometry(cap, D, packed)[2]
                     for cap in capacities):
+        obs.counter("dedup.mesh_fallback", mesh_devices=D,
+                    capacity=int(max(capacities)))
         return wgl.analysis(
             model, history, capacity=tuple(int(c) for c in capacities),
             rounds=int(rounds), max_groups=max_groups, max_procs=max_procs,
@@ -441,11 +464,15 @@ def mesh_kernel_analysis(
         )
 
     interpret = mesh.device.type != "cuda"
+    dev_ids = mesh_device_ids(mesh)
     result = None
     for cap in capacities:
         Fl, _mc, _ok = _mesh_rung_geometry(cap, D, packed)
-        valid, failed_at, lossy, peak = _run_core_mesh(
-            mesh, packed, Fl, int(rounds), int(window))
+        with obs.span("sharded.mesh_launch", devices=dev_ids, mesh_devices=D,
+                      capacity=Fl * D, per_device_capacity=Fl,
+                      interpret=interpret):
+            valid, failed_at, lossy, peak = _run_core_mesh(
+                mesh, packed, Fl, int(rounds), int(window))
         stats = {
             "frontier-peak": int(peak),
             "capacity": Fl * D,

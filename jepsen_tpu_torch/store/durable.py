@@ -39,6 +39,8 @@ import zlib
 from pathlib import Path
 from typing import Callable, Mapping
 
+from jepsen_tpu_torch import obs
+
 #: envelope schema marker (the outer format; payload schemas version
 #: independently per kind).
 ENVELOPE = 1
@@ -217,7 +219,10 @@ def quarantine_file(path, *, reason: str = "corrupt",
         dest = quarantine_path(path)
         os.replace(path, dest)
     except OSError:
+        obs.counter("durable.quarantine_error", kind=kind, reason=reason)
         return None
+    obs.counter("durable.corrupt", kind=kind, reason=reason,
+                path=str(path), quarantined_to=str(dest))
     return str(dest)
 
 
@@ -339,6 +344,9 @@ def read_verified(path, kind: str, *, quarantine: bool = True,
         payload, version = fn(payload)
         version = int(version)
         migrated = True
+    if migrated:
+        obs.counter("durable.migrated", kind=kind,
+                    from_version=read_version, to_version=version)
     return ReadResult(payload=payload, kind=kind, version=read_version,
                       migrated=migrated, legacy=legacy, path=str(path),
                       files=files)
@@ -437,4 +445,6 @@ def sweep_tmp(d, *, min_age_s: float = 60.0, what: str = "store") -> int:
         with contextlib.suppress(OSError):
             p.unlink()
             n += 1
+    if n:
+        obs.counter("durable.tmp_swept", n, what=what, dir=str(d))
     return n

@@ -203,3 +203,72 @@ def test_spawned_confirm_worker_stays_off_torch():
     probe = pool.submit(tbatch._confirm_worker.probe).result(timeout=120)
     assert not probe["torch_loaded"] and not probe["jax_loaded"]
     assert "jepsen_tpu_torch.checker.wgl_cpu" in probe["modules"]
+
+
+OBS_MODULES = sorted(
+    str(p.relative_to(ROOT)) for p in (PKG / "obs").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", OBS_MODULES)
+def test_obs_modules_import_no_torch_jax_or_jepsen_tpu(path):
+    """The telemetry package is stdlib only: no module of ``obs`` imports
+    torch, jax or the JAX package (on the syntax tree, lazy imports
+    included)."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert [n for n in names
+            if _forbidden(n) or n.split(".")[0] in ("torch", "numpy")] == []
+
+
+def test_services_and_telemetry_import_without_torch():
+    """In a fresh interpreter, every ``obs`` module, ``faults``,
+    ``store.durable``, ``store.checkpoint`` and ``checker.wgl_cpu``
+    (which now import ``obs``) load no torch, no jax and nothing of
+    the JAX package, and recording a span, a counter and a gauge with
+    them needs none either."""
+    mods = [".".join(pathlib.Path(p).with_suffix("").parts).replace(
+        ".__init__", "") for p in OBS_MODULES]
+    code = (
+        "import importlib, json, sys, tempfile\n"
+        f"for m in {json.dumps(mods)} + ['jepsen_tpu_torch.faults',\n"
+        "        'jepsen_tpu_torch.store.durable',\n"
+        "        'jepsen_tpu_torch.store.checkpoint',\n"
+        "        'jepsen_tpu_torch.checker.wgl_cpu']:\n"
+        "    importlib.import_module(m)\n"
+        "from jepsen_tpu_torch import obs\n"
+        "with obs.recording(tempfile.mkdtemp()) as r:\n"
+        "    with obs.span('s'):\n"
+        "        obs.counter('c')\n"
+        "        obs.gauge('g', 1)\n"
+        "assert r.summary['counters'] == {'c': 1}\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'jepsen_tpu'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_unrecorded_ladder_writes_no_telemetry(tmp_path, monkeypatch):
+    """With no recording open an entry point writes no telemetry file
+    and takes the no-op path: no Recorder is ever built."""
+    from jepsen_tpu_torch import obs
+    from jepsen_tpu_torch.testing.genhist import corrupt, valid_register_history
+
+    built = []
+    monkeypatch.setattr(obs.Recorder, "__init__",
+                        lambda self, d: built.append(d))
+    monkeypatch.chdir(tmp_path)
+    hists = [valid_register_history(16, 3, seed=1),
+             corrupt(valid_register_history(16, 3, seed=2), seed=2)]
+    res = tbatch.batch_analysis(tm.CASRegister(None), hists, capacity=(16,),
+                                device="cpu", confirm_refutations=False,
+                                checkpoint_dir=tmp_path / "ck")
+    assert [r["valid?"] for r in res][0] is True
+    assert built == [] and obs.active() is None
+    assert not list(tmp_path.rglob("telemetry*"))
