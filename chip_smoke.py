@@ -339,6 +339,18 @@ PLANTED_SIZES = (128, 512, 1024)
 CROSSOVER = ((1024, 48), (256, 128), (64, 700))
 CROSSOVER_SEED = 3000
 
+#: Phase 13: the check service.  Four tenants of 32 bench histories
+#: each (two interactive, two batch); the rung join's and the drain's
+#: waves; the poison bisection's members; the shards of the placement
+#: and the one its probe fails; config 3c's graphs on the graph lane.
+SERVE_CLASSES = ("interactive", "interactive", "batch", "batch")
+SERVE_TENANT_HISTORIES = 32
+SERVE_WAVE = 32
+SERVE_POISON_MEMBERS = 8
+SERVE_SHARDS = 4
+SERVE_LOST_SHARD = 2
+SERVE_GRAPHS = 64
+
 #: H100 SXM published peaks (dense): HBM bytes/s, and the 32-bit
 #: non-tensor rate used for the kernels' integer compare/hash work.
 HBM_BYTES_PER_S = 3.35e12
@@ -1007,7 +1019,7 @@ def check_cross_path(dev, wk, mesh_mod, sharded) -> float:
 
 def run_mesh_ladder(batch, wk, mesh_mod, model, hists, plain_results):
     """Phase 7: the bench ladder with the mesh rescue on 4 logical
-    shards; returns the launch counts of that run."""
+    shards; returns the launch counts and the results of that run."""
     stats: dict = {}
     wk.reset_counts()
     t0 = time.perf_counter()
@@ -1056,7 +1068,7 @@ def run_mesh_ladder(batch, wk, mesh_mod, model, hists, plain_results):
         print(f"single_shard[{cap}]: rescued lanes {took} -> "
               f"{json.dumps([r['valid?'] for r in single])} in "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
-    return counts
+    return counts, results
 
 
 def check_mesh_engine(batch, sharded, mesh_mod, model, hists, plain_results):
@@ -2754,6 +2766,481 @@ def run_telemetry(dev, batch, wk, wgl, genhist, model, hists,
     return launches
 
 
+def _pcts(xs) -> str:
+    """p50 and p99 (nearest rank) of ``xs`` in seconds, as text."""
+    if not xs:
+        return "-"
+    xs = sorted(xs)
+
+    def q(f):
+        return xs[min(len(xs) - 1, max(0, int(round(f * len(xs) + 0.5)) - 1))]
+
+    return f"p50 {q(0.50):.4f} p99 {q(0.99):.4f}"
+
+
+def _serve_agree(tag: str, got: dict, want: list) -> int:
+    """Each decided verdict of ``want`` (by bench index) equal in
+    ``got``; returns the unknowns of ``got``."""
+    differ = [i for i, r in got.items() if want[i]["valid?"] != "unknown"
+              and r["valid?"] != want[i]["valid?"]]
+    if differ:
+        raise AssertionError(
+            f"{tag}: verdicts differ from the reference at bench histories "
+            f"{differ}: {[(i, got[i]['valid?'], want[i]['valid?']) for i in differ]}")
+    return sum(1 for r in got.values() if r["valid?"] == "unknown")
+
+
+def _wait_for_rung(rec, t_limit: float = 300.0) -> float:
+    """Poll a recording until a running ladder reports its first rung
+    (the feeder's ``serve.rung_occupancy`` gauge); returns the seconds
+    waited."""
+    t0 = time.perf_counter()
+    while not any(e.get("name") == "serve.rung_occupancy"
+                  for e in list(rec.events)):
+        if time.perf_counter() - t0 > t_limit:
+            raise AssertionError(f"no rung boundary in {t_limit} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _groups(batch, wgl, model, hists) -> list:
+    """Each history's padded geometry bucket (the service's batch key
+    less the model)."""
+    out = []
+    for hh in hists:
+        p = wgl.pack(model, hh)
+        out.append(batch.bucket_geometry(p["B"], p["P"], p["G"]))
+    return out
+
+
+def run_serve(dev, batch, wk, wgl, mesh_mod, genhist, model, hists,
+              ladder_results, ladder_seconds, mesh_results, card) -> dict:
+    """Phase 13: the check service on the card (see the module
+    docstring); returns the kernels' launch counts of each sub-phase."""
+    import collections
+    import tempfile
+    import threading
+
+    from jepsen_tpu_torch import faults, obs, serve
+    from jepsen_tpu_torch.checker import elle
+    from jepsen_tpu_torch.obs import critpath
+    from jepsen_tpu_torch.obs import metrics
+    from jepsen_tpu_torch.serve import health
+    from jepsen_tpu_torch.store import durable
+    from jepsen_tpu_torch.testing import gentxn
+
+    kw = {k: v for k, v in LADDER_KW.items() if k != "capacity"}
+    launches: dict = {}
+    seconds: dict = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    root = Path(tmp.name)
+    groups = _groups(batch, wgl, model, hists)
+    by_group: dict = {}
+    for i, g in enumerate(groups):
+        by_group.setdefault(g, []).append(i)
+    big = sorted(by_group.values(), key=len, reverse=True)
+    greedy = [i for i, r in enumerate(ladder_results)
+              if r["valid?"] is True
+              and (r.get("kernel") or {}).get("capacity") == 1]
+    unknown = [i for i, r in enumerate(ladder_results)
+               if r["valid?"] == "unknown"]
+
+    def with_hard(group, n):
+        """``n`` members of ``group``, one of them a history phase 5 took
+        to its top rung or left unknown (so the ladder runs past rung 0)."""
+        hard = [i for i in group if ladder_results[i]["valid?"] == "unknown"
+                or (ladder_results[i].get("kernel") or {}).get(
+                    "capacity") == CAPS[-1]]
+        return (hard[:1] + [i for i in group if i not in hard[:1]])[:n]
+    try:
+        # (a) four tenants, two interactive and two batch
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        with obs.recording(root / "a") as rec:
+            svc = serve.CheckService(
+                capacity=CAPS, max_batch=N_HISTORIES, warm_pool=True,
+                evidence_dir=root / "a_evidence",
+                journal_dir=root / "a_journal", **kw).start()
+            futs: dict = {}
+            go = threading.Barrier(len(SERVE_CLASSES))
+
+            def tenant(k):
+                go.wait()
+                for j in range(SERVE_TENANT_HISTORIES):
+                    i = k * SERVE_TENANT_HISTORIES + j
+                    futs[i] = svc.submit(
+                        hists[i], model=model, class_=SERVE_CLASSES[k],
+                        priority=j % 3, client=f"tenant-{k}")
+
+            threads = [threading.Thread(target=tenant, args=(k,))
+                       for k in range(len(SERVE_CLASSES))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            if any(t.is_alive() for t in threads) or len(futs) != N_HISTORIES:
+                raise AssertionError("serve[a]: the tenants did not submit")
+            got = {i: f.result(timeout=600) for i, f in futs.items()}
+            svc.shutdown(wait=True)
+            st = svc.stats()
+            tiers = {i: svc.get(futs[i].id).tier for i in futs}
+            journal_left = svc.journal.depth()
+        seconds["a"] = time.perf_counter() - t0
+        launches["a"] = _launch_counts(wk)
+        unk = _serve_agree("serve[a]", got, ladder_results)
+        if unk > len(unknown):
+            raise AssertionError(f"serve[a]: {unk} unknowns against phase 5's "
+                                 f"{len(unknown)}")
+        if st["batches"] < 1 or st["fastpath_resolved"] < 1:
+            raise AssertionError(f"serve[a]: batches {st['batches']}, "
+                                 f"fast-path resolved {st['fastpath_resolved']}")
+        if st["completed"] != N_HISTORIES or journal_left:
+            raise AssertionError(f"serve[a]: {st['completed']} completed, "
+                                 f"{journal_left} journal entries left")
+        rolled = json.loads((root / "a" / "telemetry.json").read_text())
+        sv = rolled.get("serve") or {}
+        if sv.get("batches", 0) < 1 or (sv.get("request") or {}).get(
+                "count") != N_HISTORIES:
+            raise AssertionError(f"serve[a]: telemetry.json's serve section "
+                                 f"{sv}")
+        parts = critpath.decompose_requests(rec.events)
+        rows = list(parts.values())
+        if len(parts) != N_HISTORIES:
+            raise AssertionError(f"serve[a]: decompose_requests split "
+                                 f"{len(parts)} requests of {N_HISTORIES}")
+        # a rung joiner rides a launch whose span names its first
+        # members only (as in the JAX package): its residence after the
+        # join lands in other_s
+        joiners = {e.get("trace") for e in rec.events
+                   if e.get("name") == "serve.admission"
+                   and "joined_at_rung" in (e.get("attrs") or {})}
+        for tid, r in parts.items():
+            s_ = sum(r[k] for k in ("route_s", "queue_s", "pack_s", "launch_s",
+                                    "confirm_s", "other_s"))
+            if abs(s_ - r["total_s"]) > 1e-5 or (
+                    r["launch_span"] is None and tid not in joiners):
+                raise AssertionError(f"serve[a]: request split {r}")
+        lat = {t: {"queue": [], "total": []} for t in ("interactive", "batch")}
+        for i, r in got.items():
+            lat[tiers[i]]["queue"].append(r["latency"]["queue_s"])
+            lat[tiers[i]]["total"].append(r["latency"]["total_s"])
+        spans = [e for e in rec.events if e.get("type") == "span"
+                 and e["name"] == "serve.batch"]
+        print(f"serve[a]: {len(SERVE_CLASSES)} tenants x "
+              f"{SERVE_TENANT_HISTORIES} bench histories (classes "
+              f"{list(SERVE_CLASSES)}): verdicts phase 5's where phase 5 "
+              f"decided, unknowns {unk} (phase 5 {len(unknown)}); batches "
+              f"{st['batches']}, avg occupancy {st['avg_occupancy']}, "
+              f"padding waste {round(1 - (st['avg_occupancy'] or 0), 4)}, "
+              f"continuous occupancy {st['continuous_occupancy']}, fast path "
+              f"resolved {st['fastpath_resolved']} escalated "
+              f"{st['escalated']}; launches {launches['a']}; {card}",
+              flush=True)
+        for t, d in lat.items():
+            print(f"serve[a]: {t}: {len(d['total'])} requests, admission "
+                  f"{_pcts(d['queue'])} s, request {_pcts(d['total'])} s",
+                  flush=True)
+        # what one durable write costs in this temp dir: the journal
+        # writes one per ladder request at admission, the evidence dir
+        # one per settled request on the serving threads
+        probe = root / "a_durable_probe"
+        probe.mkdir()
+        writes = []
+        for k in range(SERVE_TENANT_HISTORIES):
+            t1 = time.perf_counter()
+            durable.write_record(probe / f"r{k}.json", serve.service.KIND_DRAIN,
+                                 {"k": k})
+            writes.append(time.perf_counter() - t1)
+        print(f"serve[a]: one durable write (tmp, fsync, rename, dir fsync) "
+              f"in the sub-phase's directory: {_pcts(writes)} s over "
+              f"{len(writes)} writes", flush=True)
+        print(f"serve[a]: {seconds['a']:.3f} s for the sub-phase, ladders "
+              f"(serve.batch spans) {sum(e['dur'] for e in spans):.3f} s over "
+              f"{len(spans)} batches, against phase 5's ladder "
+              f"{ladder_seconds:.3f} s; every request split into queue, pack, "
+              f"launch and demux (decompose_requests: {len(parts)} rows, "
+              f"{len(joiners)} rung joiners, launch spans "
+              f"{json.dumps(collections.Counter(r['launch_span'] for r in rows))})",
+              flush=True)
+
+        # (b) a second wave joins the running ladder at a rung boundary
+        g1 = big[0]
+        wave1 = with_hard(g1, SERVE_WAVE)
+        wave2 = [i for i in g1 if i not in wave1][:SERVE_WAVE]
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        with obs.recording(root / "b") as rec:
+            svc = serve.CheckService(capacity=CAPS, max_batch=N_HISTORIES,
+                                     warm_pool=True, **kw)
+            futs = {i: svc.submit(hists[i], model=model) for i in wave1}
+            svc.start()
+            waited = _wait_for_rung(rec)
+            futs.update({i: svc.submit(hists[i], model=model) for i in wave2})
+            got = {i: f.result(timeout=600) for i, f in futs.items()}
+            svc.shutdown(wait=True)
+            st = svc.stats()
+        seconds["b"] = time.perf_counter() - t0
+        launches["b"] = _launch_counts(wk)
+        joined = sum(int(e.get("value", e.get("n", 1)) or 1)
+                     for e in rec.events if e.get("name") == "serve.rung_joined")
+        unk = _serve_agree("serve[b]", got, ladder_results)
+        if joined < 1:
+            raise AssertionError("serve[b]: no request joined a running ladder")
+        print(f"serve[b]: wave of {len(wave2)} submitted {waited:.3f} s after "
+              f"the first ({len(wave1)} histories of geometry {groups[g1[0]]}), "
+              f"once its ladder passed rung 0: serve.rung_joined {joined}, "
+              f"batches {st['batches']}, verdicts phase 5's where phase 5 "
+              f"decided, unknowns {unk}; {seconds['b']:.3f} s; launches "
+              f"{launches['b']}; {card}", flush=True)
+
+        # (c) shutdown(drain=True) at the first rung boundary, then resume
+        running = with_hard(big[0], SERVE_WAVE)
+        queued = big[1][:SERVE_WAVE]
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        drain_dir = root / "c_drain"
+        with obs.recording(root / "c") as rec:
+            svc = serve.CheckService(capacity=CAPS, max_batch=SERVE_WAVE,
+                                     warm_pool=True, drain_dir=drain_dir, **kw)
+            futs = {i: svc.submit(hists[i], model=model)
+                    for i in running + queued}
+            svc.start()
+            _wait_for_rung(rec)
+            t_drain = time.perf_counter()
+            summary = svc.shutdown(drain=True)
+            drain_s = time.perf_counter() - t_drain
+            got = {i: f.result(timeout=60) for i, f in futs.items()}
+        drained = {i for i in futs if svc.get(futs[i].id).status == "drained"}
+        if not drained or not summary["checkpoints"]:
+            raise AssertionError(f"serve[c]: nothing drained: {summary}")
+        by_id = {futs[i].id: i for i in futs}
+        t_res = time.perf_counter()
+        out = serve.resume_drained(drain_dir, capacity=CAPS, **kw)
+        resume_s = time.perf_counter() - t_res
+        resumed = {}
+        for grp in out:
+            if "error" in grp:
+                raise AssertionError(f"serve[c]: corrupt drain group {grp}")
+            for rid, r in zip(grp["ids"], grp["results"]):
+                resumed[by_id[rid]] = r
+        seconds["c"] = time.perf_counter() - t0
+        launches["c"] = _launch_counts(wk)
+        if set(resumed) != drained:
+            raise AssertionError(f"serve[c]: resumed {sorted(resumed)} against "
+                                 f"drained {sorted(drained)}")
+        _serve_agree("serve[c]",
+                     {i: r for i, r in got.items() if i not in drained},
+                     ladder_results)
+        unequal = [i for i, r in resumed.items()
+                   if r["valid?"] != ladder_results[i]["valid?"]]
+        _serve_agree("serve[c]", resumed, ladder_results)
+        print(f"serve[c]: {len(futs)} histories, shutdown(drain=True) at the "
+              f"first rung boundary: {len(futs) - len(drained)} settled by the "
+              f"running ladder, {len(drained)} drained into "
+              f"{len(summary['checkpoints'])} checkpoint(s) in {drain_s:.3f} s "
+              f"(the running ladder's end included); resume_drained "
+              f"{resume_s:.3f} s; drained verdicts against phase 5's: "
+              f"{len(unequal)} not equal {unequal}; launches {launches['c']}; "
+              f"{card}", flush=True)
+        if unequal:
+            raise AssertionError(f"serve[c]: resumed verdicts differ from "
+                                 f"phase 5's at {unequal}")
+
+        # (d) one poison member, isolated by bisection, then quarantined
+        refuted = [i for i in big[0] if ladder_results[i]["valid?"] is False
+                   and (ladder_results[i].get("kernel") or {}).get(
+                       "capacity") == CAPS[0]]
+        easy = [i for i in big[0] if i in set(greedy)]
+        members = easy[:SERVE_POISON_MEMBERS - 2] + refuted[:2]
+        poison = members[1]
+        poison_fp = health.history_fingerprint(hists[poison])
+
+        def poison_inj(ctx, attempt):
+            if (ctx.get("what") == "serve.batch"
+                    and poison_fp in (ctx.get("members") or ())):
+                raise ValueError("injected poison member failure")
+
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        svc = serve.CheckService(capacity=CAPS, max_batch=N_HISTORIES,
+                                 warm_pool=True, quarantine_ttl_s=600.0, **kw)
+        with faults.inject_scope(poison_inj):
+            futs = {i: svc.submit(hists[i], model=model) for i in members}
+            svc.step()
+        got = {i: f.result(timeout=60) for i, f in futs.items()}
+        st = svc.stats()
+        again = svc.submit(hists[poison], model=model).result(timeout=60)
+        st2 = svc.stats()
+        seconds["d"] = time.perf_counter() - t0
+        launches["d"] = _launch_counts(wk)
+        budget = health.bisect_launch_budget(len(members))
+        quarantined = [i for i, r in got.items() if r.get("quarantined")]
+        if (quarantined != [poison] or st["poison_isolated"] != 1
+                or not 0 < st["bisect_launches"] <= budget
+                or "bisection" not in got[poison]["cause"]):
+            raise AssertionError(f"serve[d]: quarantined {quarantined} (poison "
+                                 f"{poison}), stats {st}")
+        _serve_agree("serve[d]",
+                     {i: r for i, r in got.items() if i != poison},
+                     ladder_results)
+        if (not again.get("quarantined") or "repeat poison" not in again["cause"]
+                or st2["bisect_launches"] != st["bisect_launches"]):
+            raise AssertionError(f"serve[d]: the repeat submission gave {again}")
+        print(f"serve[d]: {len(members)} members (bench {members}), poison "
+              f"bench {poison}: isolated alone in {st['bisect_launches']} "
+              f"launches (budget {budget}), the other {len(members) - 1} "
+              f"verdicts phase 5's, breaker {st['breaker']['state']}; the "
+              f"repeat submission quarantined at admission with no launch; "
+              f"{seconds['d']:.3f} s; launches {launches['d']}; {card}",
+              flush=True)
+
+        # (e) a placement of 4 logical shards, parity, then a lost shard
+        decided = [i for i in range(N_HISTORIES)
+                   if groups[i] in {groups[u] for u in unknown}
+                   and ladder_results[i]["valid?"] is not True
+                   and ladder_results[i]["valid?"] != "unknown"][:5]
+        picks = unknown + decided
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        with obs.recording(root / "e") as rec:
+            svc = serve.CheckService(
+                capacity=CAPS, devices=SERVE_SHARDS, verify_placement=True,
+                health_probe_every_s=0.0, max_batch=N_HISTORIES,
+                warm_pool=True, **kw)
+            futs = {i: svc.submit(hists[i], model=model) for i in picks}
+            while svc.stats()["queue_depth"]:
+                svc.step()
+            got = {i: f.result(timeout=60) for i, f in futs.items()}
+            launches["e"] = _launch_counts(wk)
+            t_mesh = time.perf_counter() - t0
+
+            def lose_shard(ctx, attempt):
+                # the shard is lost once: after the shrink, index 2 of
+                # the new mesh is another shard
+                if (ctx.get("what") == "placement.probe"
+                        and svc._placement.generation == 0
+                        and int(ctx.get("device", -1)) == SERVE_LOST_SHARD):
+                    raise RuntimeError("injected shard loss")
+
+            after = greedy[:4]
+            with faults.inject_scope(lose_shard):
+                futs2 = {i: svc.submit(hists[i], model=model) for i in after}
+                while svc.stats()["queue_depth"]:
+                    svc.step()
+            got2 = {i: f.result(timeout=60) for i, f in futs2.items()}
+            place = svc.stats()["placement"]
+            lost = list(svc._placement.lost)
+        seconds["e"] = time.perf_counter() - t0
+        parity_ok = sum(1 for e in rec.events
+                        if e.get("name") == "serve.placement_parity_ok")
+        mismatch = sum(1 for e in rec.events
+                       if e.get("name") == "serve.placement_parity_mismatch")
+        if launches["e"]["mesh_exchange"] <= 0:
+            raise AssertionError(f"serve[e]: no exchange launch: "
+                                 f"{launches['e']}")
+        if parity_ok < 1 or mismatch:
+            raise AssertionError(f"serve[e]: placement parity ok {parity_ok}, "
+                                 f"mismatch {mismatch}")
+        differ = [i for i in picks if got[i]["valid?"] != mesh_results[i]["valid?"]]
+        if differ:
+            raise AssertionError(
+                f"serve[e]: verdicts differ from phase 7's at {differ}: "
+                f"{[(i, got[i]['valid?'], mesh_results[i]['valid?']) for i in differ]}")
+        _serve_agree("serve[e]", got2, ladder_results)
+        if (place.get("devices") != SERVE_SHARDS - 1
+                or place.get("generation") != 1 or lost != [SERVE_LOST_SHARD]
+                or any(r["valid?"] == "unknown" for r in got2.values())):
+            raise AssertionError(f"serve[e]: after the lost shard {place}, "
+                                 f"lost {lost}, verdicts {got2}")
+        print(f"serve[e]: devices={SERVE_SHARDS}, verify_placement, fused: "
+              f"bench {picks} (phase 5's unknowns {unknown}) -> "
+              f"{json.dumps([got[i]['valid?'] for i in picks])}, phase 7's; "
+              f"serve.placement_parity_ok {parity_ok}; {t_mesh:.3f} s, "
+              f"launches {launches['e']}; shard {SERVE_LOST_SHARD} failed its "
+              f"probe: placement {json.dumps(place)}, lost {lost}, the next "
+              f"batch (bench {after}) decided "
+              f"{json.dumps([got2[i]['valid?'] for i in after])}; "
+              f"{seconds['e']:.3f} s; {card}", flush=True)
+
+        # (f) the graph lane: config 3c on the card's closure
+        txns = [gentxn.append_history(PER_KEY_TXNS, n_keys=PER_KEY_KEYS,
+                                      n_procs=PER_KEY_PROCS,
+                                      seed=PER_KEY_SEED + i)
+                for i in range(SERVE_GRAPHS)]
+        chk = elle.ListAppendChecker()
+        wk.reset_counts()
+        prev = elle.CYCLE_BACKEND
+        t0 = time.perf_counter()
+        try:
+            elle.CYCLE_BACKEND = "device"
+            with obs.recording(root / "f") as rec:
+                svc = serve.CheckService(capacity=CAPS, warm_pool=False, **kw)
+                gfuts = [svc.submit(t, checker=chk) for t in txns]
+                svc.step()
+                gres = [f.result(timeout=120) for f in gfuts]
+                st = svc.stats()
+            direct = chk.check_batch({}, txns, {"device": dev})
+        finally:
+            elle.CYCLE_BACKEND = prev
+        seconds["f"] = time.perf_counter() - t0
+        launches["f"] = _launch_counts(wk)
+        gb = sum(1 for e in rec.events if e.get("name") == "serve.graph_batches")
+        scc_dev = sum(1 for e in rec.events if e.get("type") == "span"
+                      and e["name"] == "elle.scc"
+                      and e["attrs"].get("backend") == "device")
+        keep = ("valid?", "anomaly-types", "anomalies", "not", "also-not")
+        unequal = [k for k, (a, b) in enumerate(zip(gres, direct))
+                   if {x: a.get(x) for x in keep} != {x: b.get(x) for x in keep}]
+        if st["graph_batches"] != 1 or gb != 1 or unequal or not scc_dev:
+            raise AssertionError(f"serve[f]: graph batches {st['graph_batches']}"
+                                 f" (events {gb}), device scc spans {scc_dev}, "
+                                 f"results unequal at {unequal}")
+        print(f"serve[f]: {SERVE_GRAPHS} config-3c histories (seeds "
+              f"{PER_KEY_SEED}-{PER_KEY_SEED + SERVE_GRAPHS - 1}) on the graph "
+              f"lane, CYCLE_BACKEND device: one check_batch for the one batch "
+              f"key (serve.graph_batches {gb}), {scc_dev} device elle.scc "
+              f"span(s), results equal a direct check_batch, valid "
+              f"{sum(1 for r in gres if r['valid?'] is True)}; "
+              f"{seconds['f']:.3f} s; {card}", flush=True)
+
+        # (g) a stream: bench 3 (corrupted) fed in epochs
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        svc = serve.CheckService(capacity=CAPS, warm_pool=False, **kw)
+        sid = svc.stream_open(model=model)["stream-id"]
+        h3 = hists[3]
+        for k in range(0, len(h3), STREAM_FEED_OPS):
+            svc.stream_feed(sid, h3[k: k + STREAM_FEED_OPS], seq=k)
+        closed = svc.stream_close(sid)
+        seconds["g"] = time.perf_counter() - t0
+        launches["g"] = _launch_counts(wk)
+        if (closed["result"]["valid?"] is not False
+                or ladder_results[3]["valid?"] is not False):
+            raise AssertionError(f"serve[g]: stream verdict "
+                                 f"{closed['result']['valid?']}, phase 5 "
+                                 f"{ladder_results[3]['valid?']}")
+        print(f"serve[g]: bench 3 streamed in epochs of {STREAM_FEED_OPS} ops "
+              f"({len(h3)} ops): False, as phase 5; {seconds['g']:.3f} s; "
+              f"launches {launches['g']}; {card}", flush=True)
+    finally:
+        metrics.enable_mirror(False)
+        tmp.cleanup()
+
+    total = {n: sum(c[n] for c in launches.values())
+             for n in ("keep_mask", "fused_frontier_update", "mesh_exchange")}
+    for name, c in total.items():
+        if c <= 0:
+            raise AssertionError(f"serve: {name} was not launched in phase 13")
+    if obs.active() is not None or obs.observing():
+        raise AssertionError("serve: a recording or the metrics mirror is "
+                             "still open after phase 13")
+    print(f"serve: phase 13 {time.perf_counter() - t_phase:.3f} s, seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}, "
+          f"launches {total}; {card}", flush=True)
+    return launches
+
+
 def run_ladder(batch, wk, m, genhist):
     """Phase 5: the bench ladder on the card; returns (model, results,
     histories, stats, seconds, launch counts, the ``_Capture`` of its
@@ -2919,7 +3406,8 @@ def main(argv=None) -> int:
     if disagree:
         raise AssertionError(f"{disagree} verdict disagreements")
 
-    mesh_counts = run_mesh_ladder(batch, wk, mesh_mod, model, hists, results)
+    mesh_counts, mesh_results = run_mesh_ladder(batch, wk, mesh_mod, model,
+                                                hists, results)
     check_mesh_engine(batch, sharded, mesh_mod, model, hists, results)
     single_counts, single_measured = run_single_history(
         batch, wk, wgl, sharded, mesh_mod, genhist, model, hists, results, cpu)
@@ -2932,6 +3420,9 @@ def main(argv=None) -> int:
     telemetry_counts = run_telemetry(
         dev, batch, wk, wgl, genhist, model, hists, results, seconds, counts,
         card)
+    serve_counts = run_serve(
+        dev, batch, wk, wgl, mesh_mod, genhist, model, hists, results,
+        seconds, mesh_results, card)
     if args.profile:
         profile_ladder(batch, model, hists)
     batch.shutdown_confirm_pool()
@@ -2958,6 +3449,7 @@ def main(argv=None) -> int:
                                for sub, c in services_counts.items()},
          "telemetry_launches": {sub: c[name]
                                 for sub, c in telemetry_counts.items()},
+         "serve_launches": {sub: c[name] for sub, c in serve_counts.items()},
          **({f"single_{c}_ms": single_measured[c][name]["ms"]
              for c in SPILL_CAPS} if name in single_measured[SPILL_CAPS[0]]
             else {}),

@@ -24,8 +24,9 @@ The checkers take the device of the ``"device"`` backend from their
 is ``"cpu"``.  Results carry a ``provenance`` block
 (``obs.provenance.attach``), and with a store configured each result's
 evidence bundle is written (``obs.provenance.emit``), as in the JAX
-package; the serve lane's ``batch_key`` waits with the serving modules
-(ROADMAP queue A9).
+package.  Each checker sets ``geometry_batchable = False`` and has a
+``batch_key``: the check service (``serve``) runs them on its graph
+lane, one ``check_batch`` per key.
 """
 
 from __future__ import annotations
@@ -499,6 +500,18 @@ class _ElleChecker(Checker):
     """Shared artifact and provenance plumbing for the elle-style
     checkers."""
 
+    #: Graph workloads have no padded-kernel geometry to share, so the
+    #: check service must never pack them into a geometry bucket:
+    #: admission routes them to the host side lane instead.
+    geometry_batchable = False
+
+    def batch_key(self) -> tuple:
+        """Column-shape compatibility key for the serve graph lane (the
+        graph analogue of ``parallel.batch.bucket_geometry``): queued
+        requests whose checkers share this key are served by ONE
+        ``check_batch`` call."""
+        return (type(self).__name__,)
+
     def _device(self, opts):
         """The device backend's device: the checker's own, else
         ``opts["device"]`` (the card when both are None)."""
@@ -567,6 +580,12 @@ class ListAppendChecker(_ElleChecker):
         self.engine = engine
         self.device = device
 
+    def batch_key(self) -> tuple:
+        return (
+            type(self).__name__, tuple(self.anomalies),
+            self.additional_graphs, self.engine,
+        )
+
     def check(self, test, history, opts):
         g = tg.list_append_graph(
             history, self.additional_graphs, engine=self.engine
@@ -608,6 +627,13 @@ class WRRegisterChecker(_ElleChecker):
         self.linearizable_keys = linearizable_keys
         self.engine = engine
         self.device = device
+
+    def batch_key(self) -> tuple:
+        return (
+            type(self).__name__, tuple(self.anomalies),
+            self.additional_graphs, self.sequential_keys,
+            self.linearizable_keys, self.engine,
+        )
 
     def _graph(self, history):
         return tg.rw_register_graph(
@@ -674,6 +700,12 @@ class CycleChecker(_ElleChecker):
         self.analyzer = analyzer
         self.backend = backend
         self.device = device
+
+    def batch_key(self) -> tuple:
+        # instances share a serve-lane batch only when they share the
+        # SAME analyzer object: its output shape is the compatibility
+        # contract, and there is no cheaper identity for a callable
+        return (type(self).__name__, id(self.analyzer), self.backend)
 
     def check(self, test, history, opts):
         res = self._check_one(history, self._device(opts))

@@ -115,10 +115,16 @@ def bucket_geometry(B: int, P: int, G: int) -> tuple[int, int, int]:
     )
 
 
-def padded_batch(n: int) -> int:
+def padded_batch(n: int, mesh: Mesh | None = None) -> int:
     """The padded lane count a launch of ``n`` lanes runs at: the next
-    power of two, floor 8.  Padded lanes replicate the last lane."""
-    return 1 << max(3, (n - 1).bit_length())
+    power of two, floor 8.  Padded lanes replicate the last lane.  With a
+    ``mesh``, rounded up to a multiple of its shard count, as the JAX
+    package rounds its lane-sharded launches (the check service reports
+    occupancy and pins its ladders' ``pad_lanes`` from it)."""
+    n_pad = 1 << max(3, (n - 1).bit_length())
+    if mesh is not None:
+        n_pad = -(-n_pad // mesh.size) * mesh.size
+    return n_pad
 
 
 def _halved_pad(n: int) -> int:

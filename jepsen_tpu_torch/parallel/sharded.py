@@ -32,9 +32,11 @@ cannot take, ``mesh_kernel_analysis`` falls back to the chunked engine
 (``wgl.analysis`` with the fast engine under "fused"), as the JAX
 package does.
 
-Not ported: lane placement (``lane_shard``) and ``forget_mesh``, which
-wait with the cross-card mesh (ROADMAP queue B4); on one card they place
-nothing.
+``forget_mesh`` is the check service's device-loss hook (its
+placement calls it on shrinking); the port keeps no per-mesh runner, so
+it drops nothing.  Not ported: lane placement (``lane_shard``), which
+waits with the cross-card mesh (ROADMAP queue B4); on one card it
+places nothing.
 """
 
 from __future__ import annotations
@@ -62,6 +64,17 @@ def mesh_device_ids(mesh: Mesh) -> list[int]:
     which is stamped once, so a per-device timeline counts its busy
     time once (the JAX package stamps each device of its mesh)."""
     return [mesh.device.index or 0]
+
+
+def forget_mesh(mesh: Mesh) -> int:
+    """Evict every cached runner built for ``mesh`` (the check
+    service's placement calls it when it shrinks away from a lost
+    shard); returns the number of cache entries dropped.  The JAX
+    package caches jitted runners per mesh; the port builds its mesh
+    stage's launches per call and keeps no state per mesh, so there is
+    nothing to drop and the count is 0."""
+    del mesh
+    return 0
 
 
 def _route(mesh: Mesh, C: int, state, fok, fcr, alive, cost):

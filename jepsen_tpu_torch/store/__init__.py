@@ -1,9 +1,11 @@
 """The run store's paths and writes that the checkers use.
 
 A copy of the part of the JAX package's ``store`` package that the
-checkers and the engines need: a test's directory
-(``<store-dir>/<name>/<start-time-str>``), atomic JSON and history
-writes and the JSON form of what they write (``_jsonable``).
+checkers, the engines and the check service need: a test's directory
+(``<store-dir>/<name>/<start-time-str>``), the directory-name
+timestamp (``time_str``, which stamps the service's drain dirs), atomic
+JSON and history writes and the JSON form of what they write
+(``_jsonable``).
 ``store.durable`` wraps artifacts in checksummed envelopes (and holds
 ``canonical_bytes``, what checksums and digests hash), and
 ``store.checkpoint`` keeps the engines' checkpoints and the histories'
@@ -18,6 +20,7 @@ package imports no torch: the confirmation workers import it.
 from __future__ import annotations
 
 import contextlib
+import datetime as _dt
 import json
 import os
 import tempfile
@@ -31,6 +34,12 @@ def base_dir(test_or_opts: Mapping | None = None) -> Path:
     if test_or_opts and test_or_opts.get("store-dir"):
         return Path(test_or_opts["store-dir"])
     return BASE_DIR
+
+
+def time_str(t: _dt.datetime | None = None) -> str:
+    """Directory-name timestamp (store.clj:45-50)."""
+    t = t or _dt.datetime.now()
+    return t.strftime("%Y%m%dT%H%M%S.%f")[:-3] + "Z"
 
 
 def test_dir(test: Mapping) -> Path:

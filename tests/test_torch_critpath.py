@@ -18,6 +18,7 @@ import json
 import random
 
 import pytest
+import torch
 
 from jepsen_tpu import models as jm
 from jepsen_tpu import obs as jobs
@@ -30,6 +31,18 @@ from jepsen_tpu_torch.obs import summary as tsum
 from jepsen_tpu_torch.obs import trace as ttr
 from test_critpath import mixed_histories
 from test_obs import _mixed_histories
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Several worker processes share the host: one torch thread each
+    for the module, so that no worker's torch pool oversubscribes the
+    cores the others' tests (wall-clock floors among them) run on."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # ---------------------------------------------------------------------------
 # Streams

@@ -16,6 +16,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from jepsen_tpu import faults as jf
 from jepsen_tpu import store as jstore
@@ -25,6 +26,18 @@ from jepsen_tpu_torch import faults as tf
 from jepsen_tpu_torch import store as tstore
 from jepsen_tpu_torch.store import checkpoint as tck
 from jepsen_tpu_torch.store import durable as td
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Several worker processes share the host: one torch thread each
+    for the module, so that no worker's torch pool oversubscribes the
+    cores the others' tests (wall-clock floors among them) run on."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PAYLOADS = {
     "flat": {"a": [1, 2], "b": "x"},

@@ -23,6 +23,18 @@ import torch
 from jepsen_tpu import faults as jf
 from jepsen_tpu_torch import faults as tf
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Several worker processes share the host: one torch thread each
+    for the module, so that no worker's torch pool oversubscribes the
+    cores the others' tests (wall-clock floors among them) run on."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

@@ -11,6 +11,7 @@ import random
 import sys
 
 import pytest
+import torch
 
 from jepsen_tpu import models as jm
 from jepsen_tpu.checker import wgl_cpu as jcpu
@@ -21,6 +22,17 @@ from jepsen_tpu_torch.testing import genhist as tgen
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools"))
 
 import genhist as jgen  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Several worker processes share the host: one torch thread each
+    for the module, so that no worker's torch pool oversubscribes the
+    cores the others' tests (wall-clock floors among them) run on."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -22,6 +22,18 @@ from jepsen_tpu_torch.ops import closure as tcl
 from jepsen_tpu_torch.ops import wide_kernel as twk
 from jepsen_tpu_torch.parallel import batch as tbatch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Several worker processes share the host: one torch thread each
+    for the module, so that no worker's torch pool oversubscribes the
+    cores the others' tests (wall-clock floors among them) run on."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "jepsen_tpu_torch"
 
@@ -73,6 +85,24 @@ def test_confirm_worker_import_chain_is_torch_free():
         "import jepsen_tpu_torch.history\n"
         "print(json.dumps([k for k in sys.modules if k.split('.')[0] in "
         "('torch', 'jax', 'jepsen_tpu')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serve_policy_modules_import_without_torch():
+    """The check service's policy modules (``serve.slo``,
+    ``serve.sched.admission``, ``serve.health``) load neither torch nor
+    jax nor the JAX package: an operator's tooling may read their
+    journals and SLO specs on a host without torch."""
+    code = (
+        "import json, sys\n"
+        "import jepsen_tpu_torch.serve.slo\n"
+        "import jepsen_tpu_torch.serve.sched.admission\n"
+        "import jepsen_tpu_torch.serve.health\n"
+        "print(json.dumps([k for k in sys.modules if k.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'jepsen_tpu')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)

@@ -57,7 +57,7 @@ def _wide_floors():
     jwgl.evict_runner_caches()
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """The suite runs in several worker processes on one host: one torch
     thread each keeps them from oversubscribing its cores."""

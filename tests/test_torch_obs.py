@@ -21,12 +21,24 @@ import threading
 import time
 
 import pytest
+import torch
 
 from jepsen_tpu import obs as jobs
 from jepsen_tpu.obs import metrics as jmetrics
 from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.obs import metrics
 from jepsen_tpu_torch.obs.summary import summarize
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Several worker processes share the host: one torch thread each
+    for the module, so that no worker's torch pool oversubscribes the
+    cores the others' tests (wall-clock floors among them) run on."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

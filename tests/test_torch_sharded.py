@@ -29,7 +29,7 @@ from jepsen_tpu_torch.testing.genhist import corrupt, valid_register_history
 D = 4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -31,7 +31,7 @@ from jepsen_tpu_torch.testing.genhist import corrupt, valid_register_history
 CAP = (64, 256)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """Several worker processes share the host: one torch thread each."""
     n = torch.get_num_threads()
