@@ -242,14 +242,68 @@ checkout (one nvcc per source, all started together), and then:
      ``ladder.unknowns_remaining`` and ``device.buffer_bytes``; (e) no
      recording open after the phase, so every other phase runs the
      no-op path.
+ 13. the check service (``serve.CheckService``) on the card with phase
+     5's ladder options, the launch counts set to 0 before each
+     sub-phase and read after it, on ``serve[...]`` lines: (a) four
+     tenants of 32 bench histories (two ``interactive``, two ``batch``)
+     submitted at once, with phase 5's verdicts where it decided, the
+     per-class admission and request latencies and the request
+     decomposition; (b) a second wave joining the running ladder at a
+     rung boundary; (c) a drain and its ``resume_drained``; (d) a poison
+     member bisected and quarantined; (e) ``devices=4`` with the mesh
+     rescue and a lost shard; (f) config 3c's first 64 graphs on the
+     graph lane; (g) bench 3 as a stream, refuted.
+ 14. the check service's HTTP API (``web``) on the card, in the process
+     that ran phases 1-13, on phase 5's histories and results, the
+     launch counts set to 0 before each sub-phase and read after it, on
+     ``web[...]`` lines: (a) ``web.make_server`` on 127.0.0.1 with a
+     ``CheckService`` (phase 5's ladder options) and an
+     ``obs.profiler.ProfilerHook`` mounted, ``/healthz`` and ``/readyz``
+     200; (b) bench 19 (which phase 5 takes through every rung) as one
+     batch ``POST /check`` with ``"wait"``, phase 5's verdict, under two
+     captures of the card's activity: ``POST /profile/start {"seconds":
+     1}`` a second into its ladder, stopped by the hook's watchdog on its
+     timer thread, and ``POST /profile/start {"seconds": 60}`` at its
+     first fused update, stopped by ``POST /profile/stop`` when the
+     request returns (a capture of all of (c) would hold ~10^6 launches,
+     and a stop holds the GIL while it writes them); phase 2 has run
+     ``torch.profiler`` on the main thread before, and the hook runs its
+     captures on a thread of its own; (c) bench 0-15 as
+     ``interactive`` requests with ``"wait": true`` and bench 16-31 as
+     ``batch`` requests polled by ``GET /check/<id>``, all at once: phase
+     5's verdicts where it decided, an idempotent resubmission given its
+     id back, ``GET /evidence/<id>`` of a refuted one passing
+     ``provenance.verify_bundle``, ``/queue`` and ``/alerts`` parsed, an
+     oversized body refused 413, the keep mask and the fused update
+     launched, per class the latency over HTTP beside the service's
+     own (batch requests: their POST and last GET round trips, the
+     client's poll wait apart), and ``/healthz``'s round trip under the
+     wave against (a)'s; (d) bench 3 as one NDJSON ``POST /stream``: refuted; (e) the
+     captures read back: the top rung's holds kernels of
+     ``wide_kernel.cu`` launched from the service's scheduler thread, and
+     each capture's device busy share over the hook's window (its
+     elapsed time when stopped: the watchdog's bound for the first) is
+     printed; (f) bench 0-7 and phase
+     5's results stored as a run through ``save_0``..``save_2``, listed by
+     ``GET /`` with the validity its footer holds and served by
+     ``/zip/``; (g) an ``obs.regress`` record of the phase's numbers and a
+     ``run_competition("dedup_backend", ["fused", "bucket"], repeats=2)``
+     appended to the store's ledger, the fused update launched in the
+     "fused" arm only, ``GET /perf`` rendering both and ``/metrics``
+     carrying ``jepsen_tpu_perf_headline``.
 
 It prints a ``{"kernels": [...]}`` JSON line (launches from the mesh
 ladder of phase 7, from phase 8 as ``single_history_launches``, from
 phase 9's sub-phases as ``checker_launches``, from phase 11's as
-``services_launches`` and from phase 12's as ``telemetry_launches``;
+``services_launches``, from phase 12's as ``telemetry_launches``, from
+phase 13's as ``serve_launches`` and from phase 14's as
+``web_launches``;
 times at the G = 32 shapes, and as ``single_<rows>_ms`` at phase 8's
 captured shapes) and the card line, and as its last line
-``{"ok": true, "device": {...}}``.  It exits non-zero,
+``{"ok": true, "device": {...}}``.  Before those lines it stops every
+process of the run that still runs (its orphans included: it makes
+itself their parent) and prints them on a ``processes:`` line; a run
+that fails stops them too.  It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
 
     python3 chip_smoke.py --entry-times ROOT
@@ -262,6 +316,7 @@ one card.
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import multiprocessing
 import os
@@ -351,6 +406,36 @@ SERVE_SHARDS = 4
 SERVE_LOST_SHARD = 2
 SERVE_GRAPHS = 64
 
+#: Phase 14: the HTTP API.  Bench histories 0-15 as interactive waits
+#: and 16-31 as batch requests, each batch request polled every
+#: WEB_POLL_S (faster polling from 16 threads starves the scheduler
+#: thread of the GIL, and the ladder slows several-fold); the server's
+#: request-body bound; the profiled request (bench 19, which phase 5
+#: takes through every rung) and its two captures (one second of the
+#: narrow rungs, begun a second into its ladder, and its top rung); the
+#: interval of the /healthz probe under (c)'s wave; the phase's time limit;
+#: the stored run's keys; the competition's
+#: workload (6 histories of 100 ops and 8 processes at one 1024-row
+#: rung, the fused floor, so the fused arm must reach the kernel); the
+#: kernels of wide_kernel.cu the top-rung capture must hold one of.
+WEB_INTERACTIVE = 16
+WEB_BATCH = 16
+WEB_MAX_REQUEST_MB = 1.0
+WEB_PROFILE_S = 60
+WEB_PROFILE_NARROW_S = 1.0
+WEB_PROFILE_NARROW_DELAY_S = 1.0
+WEB_PROFILE_HISTORY = 19
+WEB_POLL_S = 0.2
+WEB_HEALTH_PROBE_S = 0.5
+WEB_LIMIT_S = 360
+WEB_RUN_KEYS = 8
+COMPETE_WORKLOAD = {"histories": 6, "ops": 100, "procs": 8,
+                    "capacity": (1024,)}
+WIDE_KERNEL_NAMES = ("k_hash_keys", "k_bin_sort_kill", "k_exclusive_scan",
+                     "k_compact1", "k_compact2", "k_prune_tiles",
+                     "k_prune_list", "k_scan_hist", "k_radix_scatter",
+                     "k_chunk_count", "k_class_scatter")
+
 #: H100 SXM published peaks (dense): HBM bytes/s, and the 32-bit
 #: non-tensor rate used for the kernels' integer compare/hash work.
 HBM_BYTES_PER_S = 3.35e12
@@ -361,6 +446,88 @@ BF16_FLOPS_PER_S = 989e12
 #: int ops per hashed column per lane: one xor, then fmix32's 3
 #: xor-shifts (2 ops each) and 2 multiplies.
 HASH_OPS_PER_COL = 9
+
+
+#: prctl's option that makes a process the parent of its orphaned
+#: descendants (linux/prctl.h).
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def _adopt_orphans() -> None:
+    """Make this process the parent of every descendant whose own parent
+    ends before it (Linux's child subreaper), so that
+    ``_stop_descendants`` finds it."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1,
+                                                0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _descendants() -> dict:
+    """{pid: (parent pid, state, command line)} of every process under
+    this one, read from /proc."""
+    procs = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{name}/stat").read_text()
+            cmd = Path(f"/proc/{name}/cmdline").read_bytes()
+        except OSError:
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        procs[int(name)] = (int(ppid), state, cmd.replace(b"\0", b" ")
+                            .decode(errors="replace").strip())
+    out: dict = {}
+    frontier = [os.getpid()]
+    while frontier:
+        parent = frontier.pop()
+        for pid, v in procs.items():
+            if v[0] == parent and pid not in out:
+                out[pid] = v
+                frontier.append(pid)
+    return out
+
+
+def _stop_descendants() -> list[str]:
+    """Stop every process of this run that still runs, apart from the
+    multiprocessing resource tracker, which ends with this process (its
+    pipe closes), and reap the ended ones left to this process; returns
+    one description per process it had to stop."""
+    import signal
+
+    me = os.getpid()
+
+    def running() -> dict:
+        for pid, (ppid, state, _cmd) in _descendants().items():
+            if state == "Z" and ppid == me:
+                try:
+                    os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    pass
+        return {pid: v for pid, v in _descendants().items()
+                if v[1] != "Z" and not (
+                    v[0] == me and "multiprocessing.resource_tracker" in v[2])}
+
+    left = running()
+    stopped = [f"pid {pid} (parent {v[0]}): {v[2][:200]}"
+               for pid, v in sorted(left.items())]
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except OSError:
+                pass
+        deadline = time.monotonic() + 5.0
+        while left and time.monotonic() < deadline:
+            time.sleep(0.05)
+            left = running()
+        if not left:
+            break
+    return stopped
 
 
 def _smi() -> str:
@@ -3241,6 +3408,469 @@ def run_serve(dev, batch, wk, wgl, mesh_mod, genhist, model, hists,
     return launches
 
 
+def _http(port: int, method: str, path: str, body=None, *,
+          ndjson: bool = False, length: int | None = None):
+    """One HTTP call to the phase's server: ``(status, headers, doc)``,
+    ``doc`` the parsed JSON body (or the text); ``length`` claims a
+    Content-Length and sends no body."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        if length is not None:
+            c.putrequest(method, path)
+            c.putheader("Content-Type", "application/json")
+            c.putheader("Content-Length", str(length))
+            c.endheaders()
+        else:
+            data = None
+            if body is not None:
+                data = ("\n".join(json.dumps(x) for x in body) if ndjson
+                        else json.dumps(body)).encode()
+            c.request(method, path, body=data, headers={
+                "Content-Type": "application/x-ndjson" if ndjson
+                else "application/json"})
+        r = c.getresponse()
+        raw = r.read()
+        headers = dict(r.getheaders())
+    finally:
+        c.close()
+    try:
+        return r.status, headers, json.loads(raw)
+    except ValueError:
+        return r.status, headers, raw.decode("utf-8", "replace")
+
+
+def _expect(tag: str, got, status: int):
+    if got[0] != status:
+        raise AssertionError(f"{tag}: HTTP {got[0]} (expected {status}): "
+                             f"{str(got[2])[:400]}")
+    return got[2]
+
+
+def _capture_kind(profiler) -> str:
+    """What the hook's captures record here, in words."""
+    acts = profiler.capture_config()["activities"]
+    return "of " + " and ".join(
+        {"CUDA": "the card's activity", "CPU": "the host's ops"}.get(
+            a.name, a.name) for a in acts)
+
+
+def run_web(wk, hists, ladder_results, card) -> dict:
+    """Phase 14: the check service's HTTP API on the card (see the
+    module docstring); returns the kernels' launch counts of each
+    sub-phase."""
+    import tempfile
+    import threading
+
+    from jepsen_tpu_torch import independent, native, obs, serve, store, web
+    from jepsen_tpu_torch.obs import metrics, profiler, provenance, regress
+
+    kw = {k: v for k, v in LADDER_KW.items() if k != "capacity"}
+    launches: dict = {}
+    seconds: dict = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_web_")
+    root = Path(tmp.name)
+    store_dir = root / "store"
+    store_dir.mkdir()
+    inter = list(range(WEB_INTERACTIVE))
+    batch_ids = list(range(WEB_INTERACTIVE, WEB_INTERACTIVE + WEB_BATCH))
+    svc = srv = None
+    hook = profiler.ProfilerHook(root / "profile", max_seconds=120)
+    # a phase that hangs fails, with every thread's stack on stderr
+    faulthandler.dump_traceback_later(WEB_LIMIT_S, exit=True)
+    try:
+        # (a) the server, with the service and the profiler hook mounted
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        svc = serve.CheckService(capacity=CAPS, warm_pool=True,
+                                 evidence_dir=root / "evidence", **kw).start()
+        srv = web.make_server("127.0.0.1", 0, str(store_dir),
+                              check_service=svc, profiler=hook,
+                              max_request_mb=WEB_MAX_REQUEST_MB)
+        port = srv.server_address[1]
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        t1 = time.perf_counter()
+        health = _expect("web[a] /healthz", _http(port, "GET", "/healthz"), 200)
+        health_idle_s = time.perf_counter() - t1
+        ready = _expect("web[a] /readyz", _http(port, "GET", "/readyz"), 200)
+        if health.get("ok") is not True or ready.get("ready") is not True:
+            raise AssertionError(f"web[a]: {health} {ready}")
+        seconds["a"] = time.perf_counter() - t0
+        launches["a"] = _launch_counts(wk)
+        print(f"web[a]: server on 127.0.0.1:{port} with a CheckService "
+              f"(phase 5's ladder options) and a profiler hook: /healthz "
+              f"200 in {health_idle_s:.6f} s, /readyz 200 (breaker "
+              f"{ready['breaker']['state']}); {seconds['a']:.3f} s; {card}",
+              flush=True)
+
+        # (b) two bounded captures while the service runs one ladder (a
+        # capture over (c) would hold ~10^6 launches, and its stop holds
+        # the GIL while it writes them: PERF.md, PR 13): one second of the
+        # narrow rungs, stopped by the hook's watchdog on its timer
+        # thread, and the top rung, started when the fused update first
+        # launches and stopped over HTTP when the request returns
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        box: dict = {}
+
+        def profiled():
+            box["doc"] = _http(port, "POST", "/check", {
+                "history": hists[WEB_PROFILE_HISTORY], "model": "cas-register",
+                "class": "batch", "wait": True, "client": "chip-smoke"})
+
+        req = threading.Thread(target=profiled)
+        req.start()
+        while svc.stats()["running"] < 1 and req.is_alive():
+            time.sleep(0.005)
+        time.sleep(WEB_PROFILE_NARROW_DELAY_S)
+        narrow = _expect("web[b] /profile/start", _http(
+            port, "POST", "/profile/start",
+            {"seconds": WEB_PROFILE_NARROW_S}), 200)
+        while _http(port, "GET", "/profile")[2]["profiling"]:
+            time.sleep(0.05)
+        fused0 = wk.FUSED_LAUNCHES
+        while wk.FUSED_LAUNCHES == fused0 and req.is_alive():
+            time.sleep(0.01)
+        top = _expect("web[b] /profile/start", _http(
+            port, "POST", "/profile/start", {"seconds": WEB_PROFILE_S}), 200)
+        req.join(timeout=600)
+        t1 = time.perf_counter()
+        stop = _expect("web[b] /profile/stop", _http(
+            port, "POST", "/profile/stop"), 200)
+        t_stop = time.perf_counter() - t1
+        res = _expect(f"web[b] bench {WEB_PROFILE_HISTORY}", box["doc"], 200)
+        if res["result"]["valid?"] != ladder_results[WEB_PROFILE_HISTORY][
+                "valid?"]:
+            raise AssertionError(f"web[b]: bench {WEB_PROFILE_HISTORY}: "
+                                 f"{res['result']['valid?']}, phase 5 "
+                                 f"{ladder_results[WEB_PROFILE_HISTORY]['valid?']}")
+        # each capture's window is the hook's: its elapsed time when it
+        # stopped, which for the first is its watchdog's bound
+        captures = {"narrow": (Path(narrow["capture_dir"]),
+                               narrow["seconds"]),
+                    "top": (Path(top["capture_dir"]),
+                            stop["stopped"]["elapsed_s"])}
+        seconds["b"] = time.perf_counter() - t0
+        launches["b"] = _launch_counts(wk)
+        print(f"web[b]: bench {WEB_PROFILE_HISTORY} (phase 5: "
+              f"{ladder_results[WEB_PROFILE_HISTORY]['valid?']}) as one batch "
+              f"POST /check with wait, the same over HTTP; captures "
+              f"{_capture_kind(profiler)}: POST /profile/start "
+              f"{{\"seconds\": {WEB_PROFILE_NARROW_S}}} "
+              f"{WEB_PROFILE_NARROW_DELAY_S} s into the ladder, stopped by "
+              f"the hook's watchdog; POST /profile/start "
+              f"{{\"seconds\": {WEB_PROFILE_S}}} at the first fused update, "
+              f"POST /profile/stop after {stop['stopped']['elapsed_s']} s "
+              f"({t_stop:.3f} s to stop and write); {seconds['b']:.3f} s; "
+              f"launches {launches['b']}; {card}", flush=True)
+
+        # (c) bench 0-31 over POST /check: interactive waits, batch async
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        got: dict = {}
+        wall: dict = {}
+        ids: dict = {}
+        rtt: dict = {}
+        errors: list = []
+        health_s: list = []
+        wave_done = threading.Event()
+
+        def health_probe():
+            while not wave_done.wait(WEB_HEALTH_PROBE_S):
+                t1 = time.perf_counter()
+                got_h = _http(port, "GET", "/healthz")
+                if got_h[0] == 200:
+                    health_s.append(time.perf_counter() - t1)
+
+        def interactive(i):
+            t1 = time.perf_counter()
+            try:
+                d = _expect(f"web[c] bench {i}", _http(
+                    port, "POST", "/check", {
+                        "history": hists[i], "model": "cas-register",
+                        "class": "interactive", "wait": True,
+                        "client": "chip-smoke"}), 200)
+                got[i], ids[i] = d["result"], d["id"]
+                wall[i] = time.perf_counter() - t1
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(repr(e))
+
+        def submit(i):
+            """A batch request, then its own poll of GET /check/<id>; the
+            POST's and the last GET's round trips are HTTP's own share."""
+            try:
+                t1 = time.perf_counter()
+                d = _expect(f"web[c] bench {i}", _http(
+                    port, "POST", "/check", {
+                        "history": hists[i], "model": "cas-register",
+                        "class": "batch", "client": "chip-smoke",
+                        "idempotency_key": f"bench-{i}"}), 202)
+                post_s = time.perf_counter() - t1
+                ids[i] = d["id"]
+                while True:
+                    t2 = time.perf_counter()
+                    d = _expect(f"web[c] GET /check/{ids[i]}", _http(
+                        port, "GET", f"/check/{ids[i]}"), 200)
+                    if d["status"] in ("done", "error"):
+                        rtt[i] = post_s + time.perf_counter() - t2
+                        break
+                    if time.perf_counter() - t1 > 600:
+                        raise AssertionError(f"bench {i} still {d['status']}")
+                    time.sleep(WEB_POLL_S)
+                if d["status"] != "done":
+                    raise AssertionError(f"bench {i}: {d}")
+                got[i] = d["result"]
+                wall[i] = time.perf_counter() - t1
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=interactive, args=(i,))
+                   for i in inter]
+        threads += [threading.Thread(target=submit, args=(i,))
+                    for i in batch_ids]
+        probe = threading.Thread(target=health_probe, daemon=True)
+        probe.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wave_done.set()
+        probe.join(timeout=60)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"web[c]: {errors[:3]}")
+        unk = _serve_agree("web[c]", got, ladder_results)
+        phase5_unk = sum(1 for i in got
+                         if ladder_results[i]["valid?"] == "unknown")
+        if unk > phase5_unk:
+            raise AssertionError(f"web[c]: {unk} unknowns against phase 5's "
+                                 f"{phase5_unk}")
+        again = _expect("web[c] resubmit", _http(port, "POST", "/check", {
+            "history": hists[batch_ids[0]], "model": "cas-register",
+            "class": "batch", "idempotency_key": f"bench-{batch_ids[0]}"}),
+            200)
+        if again["id"] != ids[batch_ids[0]]:
+            raise AssertionError(f"web[c]: the resubmission got id "
+                                 f"{again['id']}, not {ids[batch_ids[0]]}")
+        refuted = [i for i in sorted(got) if got[i]["valid?"] is False]
+        bundle = _expect("web[c] /evidence", _http(
+            port, "GET", f"/evidence/{ids[refuted[0]]}"), 200)
+        rep = provenance.verify_bundle(bundle)
+        if not rep["ok"]:
+            raise AssertionError(f"web[c]: the evidence bundle of bench "
+                                 f"{refuted[0]} fails: {rep['errors']}")
+        queue = _expect("web[c] /queue", _http(port, "GET", "/queue"), 200)
+        alerts = _expect("web[c] /alerts", _http(port, "GET", "/alerts"), 200)
+        big = _expect("web[c] oversized", _http(
+            port, "POST", "/check",
+            length=int(2 * WEB_MAX_REQUEST_MB * 1024 * 1024)), 413)
+        seconds["c"] = time.perf_counter() - t0
+        launches["c"] = _launch_counts(wk)
+        for name in ("keep_mask", "fused_frontier_update"):
+            if launches["c"][name] <= 0:
+                raise AssertionError(f"web[c]: {name} was not launched behind "
+                                     f"POST /check")
+        print(f"web[c]: bench 0-{WEB_INTERACTIVE + WEB_BATCH - 1} over POST "
+              f"/check ({WEB_INTERACTIVE} interactive with wait, {WEB_BATCH} "
+              f"batch async polled by GET /check/<id>): verdicts phase 5's "
+              f"where phase 5 decided, unknowns {unk} (phase 5 {phase5_unk}); "
+              f"the idempotent resubmission got its id back; GET /evidence of "
+              f"bench {refuted[0]} passes verify_bundle; /queue completed "
+              f"{queue['completed']}, batches {queue['batches']}; /alerts "
+              f"{len(alerts['alerts'])} firing; a {big['bytes']}-byte body "
+              f"413; {seconds['c']:.3f} s; launches {launches['c']}; {card}",
+              flush=True)
+        for tier, members in (("interactive", inter), ("batch", batch_ids)):
+            http_s = [wall[i] for i in members]
+            svc_s = [got[i]["latency"]["total_s"] for i in members]
+            if tier == "interactive":
+                extra = [a - b for a, b in zip(http_s, svc_s)]
+                own = f"HTTP beyond it {_pcts(extra)} s"
+            else:
+                own = (f"the POST and the last GET round trips "
+                       f"{_pcts([rtt[i] for i in members])} s (the rest "
+                       f"beyond the service is the client's poll every "
+                       f"{WEB_POLL_S} s)")
+            print(f"web[c]: {tier}: {len(members)} requests, over HTTP "
+                  f"{_pcts(http_s)} s, the service's own latency "
+                  f"{_pcts(svc_s)} s, {own}", flush=True)
+        print(f"web[c]: GET /healthz every {WEB_HEALTH_PROBE_S} s under the "
+              f"wave: {len(health_s)} round trips, "
+              f"{_pcts(health_s)} s (idle in (a): "
+              f"{health_idle_s:.6f} s)", flush=True)
+
+        # (d) bench 3 as one NDJSON POST /stream
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        closed = _expect("web[d] /stream", _http(
+            port, "POST", "/stream",
+            [{"model": "cas-register", "client": "chip-smoke"}, *hists[3],
+             {"end": True}], ndjson=True), 200)
+        seconds["d"] = time.perf_counter() - t0
+        launches["d"] = _launch_counts(wk)
+        if (closed["result"]["valid?"] is not False
+                or ladder_results[3]["valid?"] is not False):
+            raise AssertionError(f"web[d]: stream verdict "
+                                 f"{closed['result']['valid?']}, phase 5 "
+                                 f"{ladder_results[3]['valid?']}")
+        print(f"web[d]: bench 3 ({len(hists[3])} ops) as one NDJSON POST "
+              f"/stream: False, as phase 5; {seconds['d']:.3f} s; launches "
+              f"{launches['d']}; {card}", flush=True)
+
+        # (e) the captures: the port's kernels, the device's busy share
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        summs: dict = {}
+        for tag, (cdir, wall_s) in captures.items():
+            trace = cdir / profiler.TRACE_FILE
+            if not trace.is_file():
+                raise AssertionError(f"web[e]: the {tag} capture wrote no "
+                                     f"{profiler.TRACE_FILE}")
+            size = trace.stat().st_size
+            t1 = time.perf_counter()
+            summ = profiler.device_summary(trace, wall_s=wall_s)
+            t_read = time.perf_counter() - t1
+            ours: dict = {}
+            for name, n in summ["kernels"].items():
+                short = name.replace("(anonymous namespace)::", "").replace(
+                    "void ", "").split("(")[0].split("<")[0]
+                if short.startswith("k_"):
+                    ours[short] = ours.get(short, 0) + n
+            trace.unlink()
+            summs[tag] = summ
+            print(f"web[e]: the {tag} capture: {size / 1e6:.1f} MB (read "
+                  f"{t_read:.3f} s), {summ['device_events']} device events; "
+                  f"the port's kernels {json.dumps(ours)}; device busy "
+                  f"{summ['busy_s']} s (kernels and copies summed "
+                  f"{summ['sum_s']} s) of {summ['wall_s']} s: busy share "
+                  f"{summ['busy_share']}; {card}", flush=True)
+            if tag == "top" and not any(k in ours for k in WIDE_KERNEL_NAMES):
+                raise AssertionError(f"web[e]: the top-rung capture holds no "
+                                     f"kernel of wide_kernel.cu: {sorted(ours)}")
+        seconds["e"] = time.perf_counter() - t0
+        launches["e"] = _launch_counts(wk)
+
+        # (f) phase 5's first histories and results as a stored run
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        keys = list(range(WEB_RUN_KEYS))
+        verdicts = [ladder_results[k]["valid?"] for k in keys]
+        valid = (False if False in verdicts
+                 else "unknown" if "unknown" in verdicts else True)
+        test = {"name": "chip-smoke-web", "start-time-str": store.time_str(),
+                "store-dir": str(store_dir), "nodes": [],
+                "history": _keyed(independent, hists, keys),
+                "results": {"valid?": valid, "results": {
+                    str(k): ladder_results[k] for k in keys}}}
+        store.save_0(test)
+        store.save_1(test)
+        store.save_2(test)
+        c_path = native.blockio() is not None
+        home = _expect("web[f] /", _http(port, "GET", "/"), 200)
+        row = (f"<td>{test['start-time-str']}</td>" in home
+               or f">{test['start-time-str']}</a>" in home)
+        rows = [r for r in web.run_index(str(store_dir))
+                if r[1] == test["start-time-str"]]
+        if not row or [r[3] for r in rows] != [valid]:
+            raise AssertionError(f"web[f]: GET / lists {rows} (expected "
+                                 f"valid? {valid})")
+        status, headers, _ = _http(
+            port, "GET", f"/zip/chip-smoke-web/{test['start-time-str']}")
+        if status != 200 or headers.get("Content-Type") != "application/zip":
+            raise AssertionError(f"web[f]: /zip/ answered {status}")
+        peek = store.peek_dir(store.test_dir(test))
+        seconds["f"] = time.perf_counter() - t0
+        launches["f"] = _launch_counts(wk)
+        print(f"web[f]: bench 0-{WEB_RUN_KEYS - 1} and phase 5's results "
+              f"stored through save_0..save_2 ({peek['op-count']} ops, "
+              f"valid? {peek['valid?']} from the footer); GET / lists it "
+              f"with that validity, /zip/ serves it; the C blockio path "
+              f"{'used' if c_path else 'not built (Python path)'}; "
+              f"{seconds['f']:.3f} s", flush=True)
+
+        # (g) the perf ledger, a competition, /perf and /metrics
+        wk.reset_counts()
+        t0 = time.perf_counter()
+        inter_s = sorted(wall[i] for i in inter)
+        batch_s = sorted(wall[i] for i in batch_ids)
+        fp = regress.fingerprint()
+        rec = regress.make_record("web", {
+            "web_c_s": round(seconds["c"], 6),
+            "web_interactive_p50_s": round(inter_s[len(inter_s) // 2], 6),
+            "web_batch_p50_s": round(batch_s[len(batch_s) // 2], 6),
+            "web_batch_http_p50_s": round(
+                sorted(rtt.values())[len(rtt) // 2], 6),
+            "device_busy_share_narrow": summs["narrow"]["busy_share"] or 0.0,
+            "device_busy_share_top": summs["top"]["busy_share"] or 0.0},
+            stages={f"web[{k}]": v for k, v in seconds.items()}, fp=fp)
+        regress.append_record(rec, store_dir=store_dir)
+        wl = dict(COMPETE_WORKLOAD, device=LADDER_KW["device"])
+        base_runner = regress._default_runner("dedup_backend", repeats=2,
+                                              **wl)
+        arm: dict = {}
+
+        def runner(value):
+            wk.reset_counts()
+            times = base_runner(value)
+            arm[value] = _launch_counts(wk)
+            return times
+
+        comp = regress.run_competition("dedup_backend", ["fused", "bucket"],
+                                       runner=runner, repeats=2, workload=wl)
+        regress.append_record(comp, store_dir=store_dir)
+        if (arm["fused"]["fused_frontier_update"] <= 0
+                or arm["bucket"]["fused_frontier_update"] != 0):
+            raise AssertionError(f"web[g]: fused_frontier_update launches by "
+                                 f"arm {arm}: the axis did not reach the "
+                                 f"engine")
+        perf = _expect("web[g] /perf", _http(port, "GET", "/perf"), 200)
+        if "<h2>web</h2>" not in perf or "competition verdicts" not in perf:
+            raise AssertionError("web[g]: /perf does not render both records")
+        _s, _h, text = _http(port, "GET", "/metrics")
+        if "jepsen_tpu_perf_headline{" not in text:
+            raise AssertionError("web[g]: /metrics carries no "
+                                 "jepsen_tpu_perf_headline")
+        v = comp["extra"]
+        seconds["g"] = time.perf_counter() - t0
+        launches["g"] = {n: sum(a[n] for a in arm.values())
+                         for n in ("keep_mask", "fused_frontier_update",
+                                   "mesh_exchange")}
+        print(f"web[g]: a 'web' record (fingerprint {rec['fingerprint_key']}: "
+              f"torch {fp.get('torch')}, CUDA {fp.get('cuda')}, "
+              f"{fp.get('device_kind')}) and a competition appended to "
+              f"{regress.ledger_path(store_dir=store_dir).name}: "
+              f"dedup_backend fused against bucket on "
+              f"{json.dumps(COMPETE_WORKLOAD)}: medians "
+              f"{json.dumps({k: r['median_s'] for k, r in v['results'].items()})} "
+              f"s, winner {v['winner']}, margin {v['margin_pct']} %, decisive "
+              f"{v['decisive']}, pallas_interpret "
+              f"{v.get('pallas_interpret')}; launches by arm {json.dumps(arm)}; "
+              f"/perf renders both, /metrics carries jepsen_tpu_perf_headline; "
+              f"{seconds['g']:.3f} s; {card}", flush=True)
+    finally:
+        if hook.status()["profiling"]:
+            hook.stop()
+        faulthandler.cancel_dump_traceback_later()
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        if svc is not None:
+            svc.shutdown(drain=False)
+        metrics.enable_mirror(False)
+        tmp.cleanup()
+
+    total = {n: sum(c[n] for c in launches.values())
+             for n in ("keep_mask", "fused_frontier_update")}
+    if obs.active() is not None or obs.observing():
+        raise AssertionError("web: a recording or the metrics mirror is "
+                             "still open after phase 14")
+    print(f"web: phase 14 {time.perf_counter() - t_phase:.3f} s, seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}, "
+          f"launches {total}; {card}", flush=True)
+    return launches
+
+
 def run_ladder(batch, wk, m, genhist):
     """Phase 5: the bench ladder on the card; returns (model, results,
     histories, stats, seconds, launch counts, the ``_Capture`` of its
@@ -3327,8 +3957,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.ladder_child:
         return ladder_child(args.ladder_child)
+    # a process of this run whose parent ends first is still found and
+    # stopped at the end
+    _adopt_orphans()
     if args.entry_times:
         sys.path.insert(0, os.path.abspath(args.entry_times))
+    # phase 14 profiles the service while its threads launch kernels:
+    # CUPTI stays up between this process's profiler sessions
+    # (obs/profiler.py), from the first one on
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():
@@ -3423,9 +4060,15 @@ def main(argv=None) -> int:
     serve_counts = run_serve(
         dev, batch, wk, wgl, mesh_mod, genhist, model, hists, results,
         seconds, mesh_results, card)
+    web_counts = run_web(wk, hists, results, card)
     if args.profile:
         profile_ladder(batch, model, hists)
     batch.shutdown_confirm_pool()
+    stopped = _stop_descendants()
+    print(f"processes: {len(stopped)} of this run's processes still ran "
+          f"after its phases and were stopped {json.dumps(stopped)} (the "
+          f"multiprocessing resource tracker ends with this process)",
+          flush=True)
 
     bench = {**measured["bench-G32"], "mesh_exchange": exchange}
     sources = {"keep_mask": "jepsen_tpu_torch/ops/csrc/wide_kernel.cu",
@@ -3450,6 +4093,7 @@ def main(argv=None) -> int:
          "telemetry_launches": {sub: c[name]
                                 for sub, c in telemetry_counts.items()},
          "serve_launches": {sub: c[name] for sub, c in serve_counts.items()},
+         "web_launches": {sub: c[name] for sub, c in web_counts.items()},
          **({f"single_{c}_ms": single_measured[c][name]["ms"]
              for c in SPILL_CAPS} if name in single_measured[SPILL_CAPS[0]]
             else {}),
@@ -3466,4 +4110,10 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for line in _stop_descendants():
+            print(f"chip_smoke: stopped a process left running: {line}",
+                  file=sys.stderr)
+    sys.exit(rc)

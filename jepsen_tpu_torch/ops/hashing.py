@@ -45,6 +45,7 @@ Three dedup backends (``dedup_backend``):
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -65,8 +66,15 @@ FP_SEED_2 = 0xFEED_0002
 #: Recognized dedup backends (see the module docstring).
 DEDUP_BACKENDS = ("sort", "bucket", "fused")
 
-#: The backend when the caller names none.
+#: The backend when the caller names none; the env var below overrides
+#: it, an explicit ``dedup_backend=`` argument overrides both.
 DEDUP_BACKEND = "fused"
+
+DEDUP_BACKEND_ENV = "JEPSEN_TPU_DEDUP_BACKEND"
+
+#: The JAX package's names for the port's backends, accepted from the
+#: env var so that one environment runs the same route in both packages.
+_ENV_ALIASES = {"pallas": "fused"}
 
 #: Fewer bucket bits than this and the radix partition degenerates into
 #: a handful of giant buckets; such tables (more than 2^25 candidate
@@ -80,8 +88,10 @@ MXU_PRUNE_MAX_COUNT = 64
 
 def resolve_dedup_backend(backend: str | None = None) -> str:
     """The dedup backend to use: the explicit argument, else the
-    module default."""
-    b = backend or DEDUP_BACKEND
+    JEPSEN_TPU_DEDUP_BACKEND env var (its "pallas" read as "fused"),
+    else the module default."""
+    env = os.environ.get(DEDUP_BACKEND_ENV)
+    b = backend or _ENV_ALIASES.get(env, env) or DEDUP_BACKEND
     if b not in DEDUP_BACKENDS:
         raise ValueError(
             f"unknown dedup backend {b!r}; expected one of {DEDUP_BACKENDS}"

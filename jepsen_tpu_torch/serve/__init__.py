@@ -42,11 +42,14 @@ fsync'd admission journal replayed by ``start()``, and idempotent
 resubmission.  ``serve.slo`` evaluates burn-rate objectives over the
 live metrics registry.
 
-Exposure: this Python API (``submit(history, ...) -> Future[verdict]``).
+Exposure: this Python API (``submit(history, ...) -> Future[verdict]``)
+and the HTTP check API of ``jepsen_tpu_torch.web`` (``POST /check``,
+``/stream``, ``GET /check/<id>``, ``/evidence/<id>``, ``/queue``,
+``/alerts``, ``/metrics``, ``/healthz``, ``/readyz``): mount a service
+with ``web.make_server(..., check_service=svc)`` or ``web.serve``.
 Not ported yet: the fleet router (``serve.fleet``, ROADMAP A10.4; its
-``SharedQuarantine`` is here, in ``serve.health``), the HTTP API of the
-JAX package's ``web`` module (A10.3) and the ``serve --check`` CLI
-(A10.11).
+``SharedQuarantine`` is here, in ``serve.health``) and the
+``serve --check`` CLI (A10.11).
 
 Streaming (``checker.streaming``): beside the request queues the
 service runs a bounded lane of OPEN op-streams — ``stream_open`` /

@@ -11,8 +11,8 @@ streams.  A service built with ``device="cpu"`` puts nothing on a card;
 one built without it runs on the card and fails its launches when
 there is none.  The HTTP surfaces named below (``GET /check/<id>``,
 ``POST /stream``, the 429 and 503 mappings, ``/metrics``) are those of
-the JAX package's ``web`` module, which fronts these methods; the
-port's waits for ROADMAP A10.3.
+the port's ``web`` module, which fronts these methods as the JAX
+package's does.
 
 Request lifecycle::
 

@@ -34,8 +34,8 @@ Spec kinds:
     (``target`` bounds the below-floor sample fraction).
 
 Surfaces: the ``serve_slo_burn_rate{slo=,window=}`` gauges +
-``serve_slo_alerts`` count and ``SloEngine.alerts()`` (the JAX
-package's ``GET /alerts`` waits with its HTTP API, ROADMAP A10.3).
+``serve_slo_alerts`` count and ``SloEngine.alerts()``, which ``web``
+serves as ``GET /alerts``.
 ``CheckService`` evaluates the engine from its scheduler loop (and from
 every ``step()``, so step-driven tests are deterministic).
 """

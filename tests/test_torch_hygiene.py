@@ -239,20 +239,80 @@ OBS_MODULES = sorted(
     str(p.relative_to(ROOT)) for p in (PKG / "obs").rglob("*.py"))
 
 
-@pytest.mark.parametrize("path", OBS_MODULES)
-def test_obs_modules_import_no_torch_jax_or_jepsen_tpu(path):
-    """The telemetry package is stdlib only: no module of ``obs`` imports
-    torch, jax or the JAX package (on the syntax tree, lazy imports
-    included)."""
-    tree = ast.parse((ROOT / path).read_text())
+#: ``obs`` modules whose functions reach torch, and only inside a
+#: function: the profiler hook when a capture starts, the regression
+#: ledger's fingerprint and competition runner.
+OBS_LAZY_TORCH = {"jepsen_tpu_torch/obs/profiler.py",
+                  "jepsen_tpu_torch/obs/regress.py"}
+
+
+def _imported(nodes):
     names = []
-    for node in ast.walk(tree):
+    for node in nodes:
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
-    assert [n for n in names
-            if _forbidden(n) or n.split(".")[0] in ("torch", "numpy")] == []
+    return names
+
+
+def _module_level(tree):
+    """The nodes of ``tree`` outside every function body."""
+    out, todo = [], list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        out.append(node)
+        todo.extend(ast.iter_child_nodes(node))
+    return out
+
+
+@pytest.mark.parametrize("path", OBS_MODULES)
+def test_obs_modules_import_no_torch_jax_or_jepsen_tpu(path):
+    """The telemetry package is stdlib only: no module of ``obs`` imports
+    torch, jax or the JAX package (on the syntax tree, lazy imports
+    included), but for torch inside the functions of
+    ``OBS_LAZY_TORCH``."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = _imported(ast.walk(tree))
+    assert [n for n in names if _forbidden(n) or n.split(".")[0] == "numpy"] == []
+    if path not in OBS_LAZY_TORCH:
+        assert [n for n in names if n.split(".")[0] == "torch"] == []
+    assert [n for n in _imported(_module_level(tree))
+            if n.split(".")[0] == "torch"] == []
+
+
+def test_store_web_and_perf_modules_import_without_torch(tmp_path):
+    """In a fresh interpreter ``store.format``, ``native``, ``obs.regress``,
+    ``obs.fleetview``, ``obs.profiler`` and ``web`` load no torch, no jax
+    and nothing of the JAX package; nor does browsing a store through
+    ``web``, writing and reading a run through ``store``, reading a
+    ledger, or mounting a profiler hook (until a capture starts)."""
+    code = (
+        "import json, sys\n"
+        "import jepsen_tpu_torch.store.format, jepsen_tpu_torch.native\n"
+        "import jepsen_tpu_torch.obs.regress, jepsen_tpu_torch.obs.fleetview\n"
+        "import jepsen_tpu_torch.obs.profiler, jepsen_tpu_torch.web as web\n"
+        "from jepsen_tpu_torch import store\n"
+        "from jepsen_tpu_torch.obs import profiler, regress\n"
+        f"d = {str(tmp_path)!r}\n"
+        "t = {'name': 'n', 'start-time-str': 't', 'store-dir': d,\n"
+        "     'history': [{'type': 'ok', 'process': 0, 'f': 'read',\n"
+        "                  'value': 1, 'index': 0, 'time': 0}],\n"
+        "     'results': {'valid?': True}}\n"
+        "store.save_0(t); store.save_1(t); store.save_2(t)\n"
+        "assert store.load('n', 't', store_dir=d)['results']['valid?']\n"
+        "assert 'n' in web.home_html(d) and web.suite_html(d)\n"
+        "assert web.perf_html(d) and regress.read_records(store_dir=d) == []\n"
+        "assert profiler.ProfilerHook(d).status()['profiling'] is False\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'jepsen_tpu'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_services_and_telemetry_import_without_torch():
